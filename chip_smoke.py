@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (stfem_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line; any failure raises and exits non-zero):
+  1. device: nvidia-smi name and power limit, torch and CUDA versions;
+  2. build: nvcc builds the hand-written kernels from csrc/ (-Xptxas -v);
+  3. K1 parity: time_solve kernel vs its plain torch version at the bench
+     shape (S=32, nt=3, N=512,000), bf16 and f32, with both times;
+  4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
+     B=128 in float64, with both times;
+  5. small-input check: the heat solve at 4^3 cells, ntao=4 on the GPU
+     against the same solve on the CPU (plain torch kernels) and against
+     the exact solution;
+  6. heat main path: bench_heat at its defaults (16^3 cells, 32 steps per
+     slab) for the probe plus 2 timed slabs and one profiled, untimed
+     slab; every slab must reach a TRUE relative residual <= 1e-8, and
+     the launch counts of K1 and K2 over this run must be > 0.
+Then it prints the nvidia-smi line, a JSON line describing the kernels,
+and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
+without the stfem_tpu_torch package beside it, it exits non-zero and
+prints no result.
+"""
+import json
+import os
+import subprocess
+import sys
+
+
+def _smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    idx = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return out[int(idx)] if idx.isdigit() and int(idx) < len(out) else out[0]
+
+
+def _cuda_ms(fn, n: int) -> float:
+    """Mean device time of fn() over n runs (CUDA events, after a warm-up
+    run)."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from stfem_tpu_torch import bench_heat
+        from stfem_tpu_torch.mesh.grid import StructuredMesh
+        from stfem_tpu_torch.ops import cuda_kernels
+        from stfem_tpu_torch.ops.kron_pair import (kron_pair,
+                                                   kron_pair_reference)
+        from stfem_tpu_torch.ops.kronfac import KronAssembled
+        from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
+        from stfem_tpu_torch.ops.time_solve import (time_solve,
+                                                    time_solve_reference)
+        from stfem_tpu_torch.problems import heat
+    except ImportError as e:
+        print(f"chip_smoke: the stfem_tpu_torch package is missing ({e})",
+              file=sys.stderr)
+        return 3
+    dev = torch.device("cuda")
+    smi = _smi_line()
+
+    # 1. device
+    print(f"# device: {smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    # 2. build
+    secs, log = cuda_kernels.build(force=True, verbose=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("#   " + line.strip())
+    cuda_kernels.library()
+    print(f"# build: {secs:.1f} s -> {cuda_kernels.LIB_PATH}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    report = {}
+
+    # 3. K1 parity at the bench shape
+    S, nt, N = 32, 3, (16 * 5) ** 3
+    G = (0.3 * torch.randn((nt, nt, N), generator=gen, device=dev))
+    c = torch.rand((nt, N), generator=gen, device=dev) * 1.8 - 0.9
+    for dt, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
+        w = torch.randn((S * nt, N), generator=gen, device=dev).to(dt)
+        got = time_solve(w, G, c, S, nt, dt).float()
+        ref = time_solve_reference(w, G, c, S, nt, dt).float()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        ms = _cuda_ms(lambda: time_solve(w, G, c, S, nt, dt), 20)
+        plain = _cuda_ms(lambda: time_solve_reference(w, G, c, S, nt, dt), 5)
+        print(f"# K1 time_solve {str(dt)[6:]}: max_abs_err {err:.3e} "
+              f"(rel to max {err / scale:.3e}, tol {tol:g}) kernel "
+              f"{ms:.4f} ms plain {plain:.4f} ms", flush=True)
+        if not err <= tol * scale:
+            raise AssertionError("K1 disagrees with its plain version")
+        if dt == torch.bfloat16:      # the bench's level dtype
+            report["time_solve"] = (err, ms, plain)
+
+    # 4. K2 parity at the bench shape, with the bench's 1D factors
+    mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=3)
+    K64 = LaplaceMassOperator(mesh, 4, 5, 0.0, 1.0, dtype=torch.float64,
+                              device=dev)
+    M64 = LaplaceMassOperator(mesh, 4, 5, 1.0, 0.0, dtype=torch.float64,
+                              device=dev)
+    kron = KronAssembled(K64, M64, torch.float64)
+    x = torch.randn((128,) + mesh.dof_shape(4), generator=gen, device=dev,
+                    dtype=torch.float64)
+    Kk, Mk = kron_pair(x, kron.Md, kron.Ad, kron.k)
+    Kr, Mr = kron_pair_reference(x, kron.Md, kron.Ad, kron.k)
+    err = max(float((Kk - Kr).abs().max()), float((Mk - Mr).abs().max()))
+    rel = max(float((Kk - Kr).abs().max() / Kr.abs().max()),
+              float((Mk - Mr).abs().max() / Mr.abs().max()))
+    del Kk, Mk, Kr, Mr
+    ms = _cuda_ms(lambda: kron_pair(x, kron.Md, kron.Ad, kron.k), 10)
+    plain = _cuda_ms(lambda: kron_pair_reference(x, kron.Md, kron.Ad,
+                                                 kron.k), 3)
+    print(f"# K2 kron_pair f64 B=128 n=65 k=4: max_abs_err {err:.3e} "
+          f"(rel to max {rel:.3e}, tol 1e-14) kernel {ms:.3f} ms plain "
+          f"{plain:.3f} ms", flush=True)
+    if not rel <= 1e-14:
+        raise AssertionError("K2 disagrees with its plain version")
+    report["kron_pair"] = (err, ms, plain)
+    del x, kron
+    torch.cuda.empty_cache()
+
+    # 5. small input: GPU kernels vs the CPU plain path, and vs the exact
+    #    solution at the end of the last slab
+    torch.set_num_threads(1)
+    small = {}
+    for where in ("cuda", "cpu"):
+        info, xl = bench_heat.run(4, 4, n_slabs=3, device=where,
+                                  eig_proxy_cells=2)
+        small[where] = (info, xl[-1].cpu())
+    (ig, xg), (ic, xc) = small["cuda"], small["cpu"]
+    diff = float((xg - xc).norm() / xc.norm())
+    m4 = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=1)
+    exact = heat.exact_solution(torch.as_tensor(
+        m4.dof_coordinates(4), dtype=torch.float64), 3 * 4 / 16.0)
+    ex_err = float((xg - exact).norm() / exact.norm())
+    print(f"# small 4^3 ntao=4: V-cycles/slab gpu {ig['iters']} cpu "
+          f"{ic['iters']}, TRUE rel gpu {ig['true_rels']} cpu "
+          f"{ic['true_rels']}, |x_gpu - x_cpu|/|x_cpu| {diff:.2e} "
+          f"(tol 1e-6), error vs exact {ex_err:.2e} (tol 1e-3)",
+          flush=True)
+    if not (ig["converged"] and ic["converged"] and diff <= 1e-6
+            and ex_err <= 1e-3
+            and all(abs(a - b) <= 1 for a, b in zip(ig["iters"],
+                                                    ic["iters"]))):
+        raise AssertionError("small-input check failed")
+
+    # 6. the heat main path at the bench defaults
+    time_solve.launches = 0
+    kron_pair.launches = 0
+    info, _ = bench_heat.run(16, 32, n_slabs=2, device="cuda", profile=True)
+    launches = {"time_solve": time_solve.launches,
+                "kron_pair": kron_pair.launches}
+    prof = info.pop("profile")
+    print(json.dumps(info), flush=True)
+    print(f"# profile of one more slab (untimed): device busy "
+          f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall, "
+          f"{prof['n_kernel_launches']} launches; top ops (ms) "
+          f"{prof['top_ops_ms'][:5]}", flush=True)
+    print(json.dumps(bench_heat.metric_line(info)), flush=True)
+    print(f"# heat 16^3 ntao=32: V-cycles/slab {info['iters']}, TRUE rel "
+          f"{info['true_rels']}, probe floor {info['probe_floor']:.3e}, "
+          f"setup {info['setup_s']:.1f} s, {info['dofs_per_s']:.4e} "
+          f"space-time DoF/s, launches {launches}", flush=True)
+    if not (info["converged"]
+            and all(r <= 1e-8 for r in info["true_rels"])):
+        raise AssertionError("heat slab solve did not reach TRUE <= 1e-8")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+
+    sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
+                              "stfem_tpu/ops/pallas_timesolve.py:82"),
+               "kron_pair": ("stfem_tpu_torch/csrc/kron_pair.cu",
+                             "stfem_tpu/ops/pallas_ffresid.py:120")}
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches[name],
+                "max_abs_err": report[name][0], "ms": report[name][1],
+                "plain_ms": report[name][2]}
+               for name, (src, rep) in sources.items()]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

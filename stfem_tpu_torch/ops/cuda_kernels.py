@@ -1,0 +1,79 @@
+"""Build and load the hand-written CUDA kernels of csrc/.
+
+The kernels have a plain C interface and are compiled by nvcc into one
+shared library, loaded with ctypes (no PyTorch headers: the build takes
+seconds).  The build runs at first use, from the sources in this package
+alone, into build/kernels/ at the repository root; it is redone whenever a
+source is newer than the library.  Nothing here runs when the package is
+imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("time_solve.cu", "kron_pair.cu")
+LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "kernels"
+            / "libstfem_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(force: bool = False, verbose: bool = False) -> tuple[float, str]:
+    """Compile csrc/*.cu into LIB_PATH if it is missing or stale.
+    Returns (seconds spent, compiler output).  verbose adds -Xptxas -v
+    (registers, shared memory and spills per kernel)."""
+    srcs = [CSRC / s for s in SOURCES]
+    if (not force and LIB_PATH.exists()
+            and all(LIB_PATH.stat().st_mtime >= s.stat().st_mtime
+                    for s in srcs)):
+        return 0.0, ""
+    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+           + ["-o", str(tmp)] + [str(s) for s in srcs])
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    os.replace(tmp, LIB_PATH)
+    return time.time() - t0, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    build()
+    lib = ctypes.CDLL(str(LIB_PATH))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.stfem_time_solve.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, vp]
+    lib.stfem_time_solve.restype = i32
+    lib.stfem_kron_pair.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32,
+                                    i32, i32, i32, i32, vp]
+    lib.stfem_kron_pair.restype = i32
+    _LIB = lib
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

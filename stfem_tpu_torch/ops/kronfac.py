@@ -1,0 +1,100 @@
+"""1D-assembled Kronecker-sum operator apply for tensor-product geometry
+(counterpart of stfem_tpu/ops/kronfac.py::KronAssembled).
+
+On an axis-aligned uniform mesh the global assembled operators factorize
+exactly:
+    M_glob = M_1 (x) ... (x) M_dim
+    K_glob = sum_e  M_1 (x) ... (x) A_e (x) ... (x) M_dim
+with 1D assembled mass/stiffness matrices M_d, A_d (bandwidth 2k+1) built
+from the same 1D quadrature as the volume operator.  One (Kx, Mx) pair
+costs 3*dim-1 per-axis applies with a shared mass prefix.
+
+The float32/bfloat16 pair uses the dense per-axis matmuls; the float64
+pair (the IR residual) uses the banded diagonal form through kernel K2
+(ops/kron_pair.py).  The 1D factors are unconstrained: Dirichlet masking
+stays external (y = mask * A (mask * x)).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .gridsumfac import axis_apply
+from .kron_pair import kron_pair
+
+__all__ = ["KronAssembled", "to_diags"]
+
+
+def to_diags(A: np.ndarray, k: int) -> np.ndarray:
+    """(2k+1, nd) diagonal storage: D[o, i] = A[i, i+o-k] (0 off-range)."""
+    nd = A.shape[0]
+    D = np.zeros((2 * k + 1, nd))
+    for o in range(-k, k + 1):
+        lo, hi = max(0, -o), min(nd, nd - o)
+        D[o + k, lo:hi] = A[np.arange(lo, hi), np.arange(lo, hi) + o]
+    return D
+
+
+def assemble_1d_dense(op1) -> np.ndarray:
+    """Dense (nd, nd) assembled matrix of a 1D LaplaceMassOperator."""
+    E = op1.element_matrices().cpu().numpy().astype(np.float64)
+    k = op1.degree
+    nc = E.shape[0]
+    A = np.zeros((nc * k + 1, nc * k + 1))
+    for c in range(nc):
+        A[c * k:c * k + k + 1, c * k:c * k + k + 1] += E[c]
+    return A
+
+
+def one_d_operators(mesh, d: int, k: int, n_q: int):
+    """The unconstrained f64 1D mass and stiffness operators of axis d."""
+    from ..mesh.grid import StructuredMesh
+    from .spatial import LaplaceMassOperator
+
+    verts = mesh.axis_vertices(d)
+    mesh1 = StructuredMesh([int(mesh.cells[d])], [float(verts[0])],
+                           [float(verts[-1])], refinement=0)
+    free = np.ones(int(mesh.cells[d]) * k + 1)
+    M1 = LaplaceMassOperator(mesh1, k, n_q, 1.0, 0.0, dtype=torch.float64,
+                             mask=free)
+    A1 = LaplaceMassOperator(mesh1, k, n_q, 0.0, 1.0, dtype=torch.float64,
+                             mask=free)
+    return M1, A1
+
+
+class KronAssembled:
+    """Per-axis assembled factors + the shared-prefix pair apply."""
+
+    def __init__(self, K_op, M_op, dtype):
+        device = K_op.device
+        k, dim, n_q = K_op.degree, K_op.dim, K_op.n_q
+        self.dim, self.k = dim, k
+        self.dtype, self.device = dtype, device
+        self.M1, self.A1, self.Md, self.Ad = [], [], [], []
+        for d in range(dim):
+            M1op, A1op = one_d_operators(K_op.mesh, d, k, n_q)
+            M1np, A1np = assemble_1d_dense(M1op), assemble_1d_dense(A1op)
+            as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+            self.M1.append(as_t(M1np))
+            self.A1.append(as_t(A1np))
+            self.Md.append(as_t(to_diags(M1np, k)))
+            self.Ad.append(as_t(to_diags(A1np, k)))
+
+    def pair(self, x: torch.Tensor, need_K: bool = True,
+             need_M: bool = True):
+        """x: [..., *dofshape] -> (K_glob x, M_glob x); a result that is not
+        requested is None."""
+        if self.dtype == torch.float64:
+            Kx, Mx = kron_pair(x.contiguous(), self.Md, self.Ad, self.k)
+            return (Kx if need_K else None), (Mx if need_M else None)
+        lead = x.ndim - self.dim
+        val, ks = x, None
+        for d in range(self.dim):
+            ax = lead + d
+            if need_K:
+                a_term = axis_apply(self.A1[d], val, ax)
+                ks = (a_term if ks is None
+                      else axis_apply(self.M1[d], ks, ax) + a_term)
+            if need_M or (need_K and d < self.dim - 1):
+                val = axis_apply(self.M1[d], val, ax)
+        return (ks if need_K else None), (val if need_M else None)

@@ -1,0 +1,267 @@
+"""Space-time multigrid preconditioner (counterpart of
+stfem_tpu/stmg/gmg.py; the reference's GMG, stmg.h:1047-1419).
+
+One GMG object owns the heat hierarchy: per-level slab operators (level
+dtype, bf16 with level_bf16), grid-mode Vanka smoothers, Relaxation/
+Identity smoother wiring with deterministic eigenvalue estimates,
+separable space transfers and dense time transfers.  The V-cycle is
+bench.py's tuned one (bench.py:886-923), the only configuration ported:
+
+  pre-smooth:   u = S(d), S = 2 Relaxation sweeps with the level's Vanka
+  post-smooth:  u += S(d - A u)
+  Identity levels (paired space/time levels of the reference's ladder)
+  are skipped; the coarsest level is solved by a dense float32 inverse.
+
+The wave and Stokes builders, the Chebyshev smoother, the variable
+smoothing steps, the Smoother/GMRES coarse solves and the estimate cache
+of stfem_tpu are not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..mesh.grid import StructuredMesh
+from ..ops.spatial import LaplaceMassOperator
+from ..system import SystemMatrix
+from ..time.mg_seq import (get_mg_sequence, get_poly_mg_sequence,
+                           get_precondition_stmg_types)
+from ..time.tables import get_fe_time_weights_sequence
+from ..types import (CoarseningType, MGType, PolynomialCoarseningSequenceType,
+                     SupportedSmoothers, TimeStepType)
+from .smoother import (IdentitySmoother, RelaxationSmoother,
+                       estimate_eigenvalues, relaxation_parameters)
+from .transfers import (SpaceTransfer, TimeTransfer, h_prolongation_global_1d,
+                        p_prolongation_global_1d)
+from .vanka import PreconditionVanka
+
+INNER_SWEEPS = 2           # Relaxation sweeps per smoother application
+ARNOLDI_MAX_N = 4_000_000  # larger estimates use the 20-step power method
+
+
+@dataclass
+class GMGParams:
+    """What varies between the bench's hierarchy and the parity tests'.
+
+    level_bf16: run the V-cycle levels in bf16 and store the Vanka
+        down/up matrices in bf16 (bench.py's level_bf16 + vanka_bf16); the
+        Vanka time-solve factors and the coarse inverse stay float32.
+    eig_proxy_cells: > 0 estimates the smoother eigenvalues on a proxy of
+        this many cells per axis (same cell size, degree and 2-step tables)
+        for every level larger than it; lambda_max(P A) is h- and
+        S-independent."""
+    level_bf16: bool = True
+    eig_proxy_cells: int = 4
+
+
+@dataclass
+class _Level:
+    matrix: SystemMatrix
+    smoother: object
+    n_blocks: int
+    dof_shape: tuple
+
+
+class GMG:
+    DIRECT_COARSE_MAX = 16384
+
+    def __init__(self, levels, transfers, dtype, precondition_sequence):
+        self.levels = levels
+        self.transfers = transfers
+        self.dtype = dtype
+        self.precondition_sequence = precondition_sequence
+        self.max_level = len(levels) - 1
+        self.coarse_Ainv = self._assemble_direct_coarse()
+
+    def _assemble_direct_coarse(self):
+        """Dense float32 inverse of the coarsest slab operator, assembled
+        from all unit columns at once (unit diagonal on constrained dofs)."""
+        lvl = self.levels[0]
+        n = lvl.n_blocks * int(np.prod(lvl.dof_shape))
+        assert n <= self.DIRECT_COARSE_MAX, \
+            f"coarse level too large for Direct solver ({n})"
+        shape = (lvl.n_blocks,) + tuple(lvl.dof_shape)
+        eye = torch.eye(n, dtype=self.dtype, device=lvl.matrix.device)
+        # block axis first, the n columns as a batch axis before the grid
+        cols = lvl.matrix.vmult(eye.reshape((n,) + shape).transpose(0, 1))
+        A = cols.transpose(0, 1).reshape(n, n).T.to(torch.float32)
+        zero_rows = (torch.amax(torch.abs(A), dim=1) == 0.0).to(
+            torch.float32)
+        return torch.linalg.inv(A + torch.diag(zero_rows))
+
+    def _level_v_step(self, level: int, defect):
+        if level == 0:
+            d = defect.to(torch.float32).reshape(-1)
+            return (self.coarse_Ainv @ d).reshape(defect.shape).to(
+                self.dtype)
+        lvl = self.levels[level]
+        skip = isinstance(lvl.smoother, IdentitySmoother)
+        u = torch.zeros_like(defect) if skip else lvl.smoother.vmult(defect)
+        r = defect - lvl.matrix.vmult(u)
+        dc = self.transfers[level - 1].restrict(r)
+        uc = self._level_v_step(level - 1, dc)
+        u = u + self.transfers[level - 1].prolongate(uc)
+        if skip:
+            return u
+        return u + lvl.smoother.vmult(defect - lvl.matrix.vmult(u))
+
+    def vmult(self, src):
+        """One V-cycle in the level precision; cast at the boundary
+        (reference stmg.h:1331-1344)."""
+        y = self._level_v_step(self.max_level, src.to(self.dtype))
+        return y.to(src.dtype)
+
+    __call__ = vmult
+
+
+def _two_step_tables(Alpha, Beta):
+    """The 2-step tables with the same per-step blocks, or None."""
+    struct = SystemMatrix._detect_step_structure(np.asarray(Alpha),
+                                                 np.asarray(Beta))
+    if struct is None:
+        return None
+    nt, A0, A1, B0, B1 = struct
+    A2 = np.zeros((2 * nt, 2 * nt))
+    B2 = np.zeros((2 * nt, 2 * nt))
+    A2[:nt, :nt] = A2[nt:, nt:] = A0
+    A2[nt:, :nt] = A1
+    B2[:nt, :nt] = B2[nt:, nt:] = B0
+    B2[nt:, :nt] = B1
+    return A2, B2
+
+
+def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
+               type_: TimeStepType, n_timesteps_at_once: int,
+               time_step: float, params: GMGParams | None = None,
+               dtype=torch.float32, device="cpu") -> GMG:
+    """Assemble the STMG hierarchy for the heat cycle with stfem_tpu's
+    ladder conventions (space_and_time coarsening, p-multigrid, bisected
+    space and time degree sequences down to 1 and fe_degree-1 resp., one
+    tau level).  Everything lives on `device`; the estimates sweep there."""
+    params = params or GMGParams()
+    if params.level_bf16:
+        dtype = torch.bfloat16
+    device = torch.device(device)
+    fe_degree_min = max(fe_degree - 1,
+                        1 if type_ == TimeStepType.CGP else 0)
+    bisect = PolynomialCoarseningSequenceType.bisect
+    coarsening = CoarseningType.space_and_time
+
+    n_sp_lvl = mesh_fine.refinement + 1
+    meshes = [StructuredMesh(mesh_fine.subdivisions, mesh_fine.lower,
+                             mesh_fine.upper, refinement=r)
+              for r in range(n_sp_lvl)]
+    poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min, bisect)
+    poly_space = get_poly_mg_sequence(space_degree, 1, bisect)
+    mg_type_level = get_mg_sequence(
+        n_sp_lvl, poly_time, poly_space, n_timesteps_at_once,
+        max(n_timesteps_at_once // 2, 1), MGType.tau, coarsening, False,
+        True, False)
+    precond_seq = get_precondition_stmg_types(
+        mg_type_level, coarsening, False, False,
+        SupportedSmoothers.Relaxation)
+    fetw = get_fe_time_weights_sequence(
+        type_, time_step, n_timesteps_at_once, mg_type_level, poly_time)
+
+    # walk the level state from fine to coarse
+    n_levels = len(mg_type_level) + 1
+    mesh_idx, spd_idx = [0] * n_levels, [0] * n_levels
+    n_at_once, ntd_idx = [0] * n_levels, [0] * n_levels
+    mi, si, na, ti = (n_sp_lvl - 1, len(poly_space) - 1,
+                      n_timesteps_at_once, len(poly_time) - 1)
+    for l in range(n_levels - 1, -1, -1):
+        mesh_idx[l], spd_idx[l], n_at_once[l], ntd_idx[l] = mi, si, na, ti
+        if l > 0:
+            mgt = mg_type_level[l - 1]
+            if mgt == MGType.h:
+                mi -= 1
+            elif mgt == MGType.p:
+                si -= 1
+            elif mgt == MGType.k:
+                ti -= 1
+            elif mgt == MGType.tau:
+                na //= 2
+    dg = type_ == TimeStepType.DG
+
+    def ops(mesh_, deg_):
+        return (LaplaceMassOperator(mesh_, deg_, deg_ + 1, 0.0, 1.0,
+                                    dtype=dtype, device=device),
+                LaplaceMassOperator(mesh_, deg_, deg_ + 1, 1.0, 0.0,
+                                    dtype=dtype, device=device))
+
+    def vanka(K, M, A, B, n_steps):
+        return PreconditionVanka(
+            K, M, A, B, dtype=dtype, n_steps=n_steps,
+            storage_dtype=torch.bfloat16 if params.level_bf16 else None)
+
+    levels, ops_cache = [], {}
+    for l in range(n_levels):
+        mesh_l = meshes[mesh_idx[l]]
+        deg_l = poly_space[spd_idx[l]]
+        if (mesh_idx[l], deg_l) not in ops_cache:
+            ops_cache[(mesh_idx[l], deg_l)] = ops(mesh_l, deg_l)
+        K, M = ops_cache[(mesh_idx[l], deg_l)]
+        Alpha_l, Beta_l = fetw[l][0], fetw[l][1]
+        matrix = SystemMatrix(K, M, Alpha_l, Beta_l, precision=None)
+        rt = poly_time[ntd_idx[l]]
+        n_blocks = (rt + 1 if dg else rt) * n_at_once[l]
+        lvl = _Level(matrix=matrix, smoother=IdentitySmoother(),
+                     n_blocks=n_blocks, dof_shape=mesh_l.dof_shape(deg_l))
+        levels.append(lvl)
+        # level 0 is solved directly: its smoother would never run
+        if l == 0 or precond_seq[l] == SupportedSmoothers.Identity:
+            continue
+        v = vanka(K, M, Alpha_l, Beta_l, n_at_once[l])
+        omega = 1.0     # degenerate level: every dof constrained
+        if np.sum(K.mask_np) != 0:
+            # the estimate runs on a proxy when the level is larger
+            m_est, v_est, mask = matrix, v, K.mask_np
+            shape = (n_blocks,) + tuple(lvl.dof_shape)
+            p = params.eig_proxy_cells
+            if p > 0 and all(int(c) > p for c in mesh_l.cells):
+                pm = StructuredMesh([p] * mesh_l.dim, [0.0] * mesh_l.dim,
+                                    [p * float(h) for h in mesh_l.h])
+                Kp, Mp = ops(pm, deg_l)
+                A_e, B_e, s_e = Alpha_l, Beta_l, n_at_once[l]
+                two = _two_step_tables(Alpha_l, Beta_l)
+                if two is not None and s_e > 2:
+                    (A_e, B_e), s_e = two, 2
+                m_est = SystemMatrix(Kp, Mp, A_e, B_e, precision=None)
+                v_est = vanka(Kp, Mp, A_e, B_e, s_e)
+                mask = Kp.mask_np
+                shape = (np.asarray(A_e).shape[0],) + pm.dof_shape(deg_l)
+            method = ("arnoldi" if int(np.prod(shape)) <= ARNOLDI_MAX_N
+                      else "power")
+            info = estimate_eigenvalues(m_est, v_est, shape, mask,
+                                        device=device, method=method)
+            if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
+                omega = relaxation_parameters(info)
+        lvl.smoother = RelaxationSmoother(matrix, v, omega, INNER_SWEEPS)
+
+    transfers = []
+    for l in range(1, n_levels):
+        mgt = mg_type_level[l - 1]
+        mesh_hi, mesh_lo = meshes[mesh_idx[l]], meshes[mesh_idx[l - 1]]
+        deg_hi, deg_lo = poly_space[spd_idx[l]], poly_space[spd_idx[l - 1]]
+        if mgt in (MGType.h, MGType.p):
+            if mgt == MGType.h:
+                P1ds = [h_prolongation_global_1d(mesh_lo.cells[d], deg_hi)
+                        for d in range(mesh_hi.dim)]
+            else:
+                P1ds = [p_prolongation_global_1d(mesh_hi.cells[d], deg_lo,
+                                                 deg_hi)
+                        for d in range(mesh_hi.dim)]
+            transfers.append(SpaceTransfer(
+                P1ds, mesh_hi.boundary_dof_mask(deg_hi),
+                mesh_lo.boundary_dof_mask(deg_lo), dtype, device))
+        else:
+            rt_hi, rt_lo = poly_time[ntd_idx[l]], poly_time[ntd_idx[l - 1]]
+            transfers.append(TimeTransfer(
+                type_, mgt, rt_hi + 1 if dg else rt_hi,
+                rt_lo + 1 if dg else rt_lo, n_at_once[l], dtype, device))
+
+    gmg = GMG(levels, transfers, dtype, precond_seq)
+    gmg.mg_type_level = mg_type_level
+    return gmg

@@ -1,0 +1,185 @@
+"""Cell-wise Vanka patch smoother, grid fast-diagonalisation mode
+(counterpart of stfem_tpu/stmg/vanka.py::PreconditionVanka with the
+separable eigenbasis and STFEM_GRID_VANKA on, its default).
+
+The space-time patch matrix B_c = Alpha (x) K_loc_c + Beta (x) M_loc_c,
+row-scaled by dof valence (reference include/stmg.h:619-907), is inverted
+by fast diagonalisation: on a uniform tensor mesh every patch inherits the
+per-axis generalized eigenbases V_d of the 1D patch matrices, so
+    B_c^{-1} = (I (x) V) [per eigenvalue (lam Alpha + Beta)^{-1}] (I (x) V^T).
+The apply is "grid" form: the gather, the valence scaling and V_d^T fold
+into one banded matrix per axis (Wdn), the per-position time solve runs on
+the flat eigen-position axis (kernel K1, ops/time_solve.py, for
+multi-step slabs), and the transposed matrices (Wup) apply V_d and the
+overlap-add scatter.  The dense and cell-local patch modes are not ported.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.gridsumfac import axis_apply, promote
+from ..ops.kronfac import assemble_1d_dense
+from ..ops.spatial import LaplaceMassOperator
+from ..ops.time_solve import time_solve
+
+
+def separable_eigenbasis(K_op: LaplaceMassOperator,
+                         M_op: LaplaceMassOperator):
+    """Per-axis Kronecker factorization of the patch generalized
+    eigenbasis (Lynch-Rice-Thomas fast diagonalisation).
+
+    Per axis and cell, the free (unconstrained) 1D patch dofs get the
+    generalized eigenpairs of (K1_patch, M1_patch) -- V^T M V = I,
+    V^T K V = diag(lam); constrained dofs get unit vectors with the
+    placeholder eigenvalue 1/dim (they only ever see a zero residual).
+
+    Returns (lam [C, A] float64, V_axes list of [cells_d, k+1, k+1])."""
+    import scipy.linalg
+
+    from ..mesh.grid import StructuredMesh
+
+    mesh = K_op.mesh
+    k, dim = K_op.degree, K_op.dim
+    lam_axes, v_axes = [], []
+    for d in range(dim):
+        verts = mesh.axis_vertices(d)
+        nc = int(mesh.cells[d])
+        mesh1 = StructuredMesh([nc], [float(verts[0])], [float(verts[-1])])
+        mask1 = mesh1.boundary_dof_mask(k)
+        patches = []
+        for ms, ls in ((0.0, 1.0), (1.0, 0.0)):
+            op = LaplaceMassOperator(mesh1, k, K_op.n_q, ms, ls,
+                                     dtype=torch.float64)
+            # assembled 1D matrix, unit diagonal on constrained dofs
+            patches.append(assemble_1d_dense(op) + np.diag(1.0 - mask1))
+        Kd, Md = patches
+        lam_d = np.full((nc, k + 1), 1.0 / dim)
+        V_d = np.zeros((nc, k + 1, k + 1))
+        for c in range(nc):
+            sl = slice(c * k, c * k + k + 1)
+            free = mask1[sl] > 0.0
+            idx, cidx = np.where(free)[0], np.where(~free)[0]
+            if len(idx):
+                w, v = scipy.linalg.eigh(Kd[sl, sl][np.ix_(idx, idx)],
+                                         Md[sl, sl][np.ix_(idx, idx)])
+                lam_d[c, idx] = w
+                V_d[c][np.ix_(idx, idx)] = v
+            V_d[c][cidx, cidx] = 1.0
+        lam_axes.append(lam_d)
+        v_axes.append(V_d)
+    lam = np.zeros(tuple(int(c) for c in mesh.cells) + (k + 1,) * dim)
+    for d in range(dim):
+        s = [1] * (2 * dim)
+        s[d] = mesh.cells[d]
+        s[dim + d] = k + 1
+        lam = lam + lam_axes[d].reshape(s)
+    return lam.reshape(mesh.n_cells, (k + 1) ** dim), v_axes
+
+
+class PreconditionVanka:
+    """Additive-Schwarz cell-patch preconditioner over the space-time slab,
+    grid fast-diagonalisation apply.
+
+    storage_dtype (e.g. torch.bfloat16) stores the down/up matrices at
+    reduced precision; the per-step time-solve factors stay float32 for
+    bf16 levels (bf16 per-step recurrences are not accurate enough).
+
+    Multi-step slabs (n_steps > 1) with the block-bidiagonal rank-1 step
+    coupling solve per position  x_s = G^{-1} r_s + x_{s-1}[last] c  with
+    G = lam a + b (nt x nt) and c = G^{-1}(lam g + z): kernel K1."""
+
+    def __init__(self, K_op: LaplaceMassOperator, M_op: LaplaceMassOperator,
+                 Alpha, Beta, dtype=None, storage_dtype=None,
+                 n_steps: int = 1):
+        self.K_op = K_op
+        self.cells = K_op.cells
+        self.k = K_op.degree
+        self.dim = K_op.dim
+        self.dtype = dtype or K_op.dtype
+        self.device = K_op.device
+        Alpha, Beta = np.asarray(Alpha), np.asarray(Beta)
+        self.n_blocks = Alpha.shape[0]
+        cells, k, dim = self.cells, self.k, self.dim
+
+        # detect the block-bidiagonal rank-1 multi-step structure
+        self.n_steps = 1
+        if n_steps > 1 and self.n_blocks % n_steps == 0:
+            nt = self.n_blocks // n_steps
+            a_nt, b_nt = Alpha[:nt, :nt], Beta[:nt, :nt]
+            g_nt = -Alpha[nt:2 * nt, nt - 1]
+            z_nt = -Beta[nt:2 * nt, nt - 1]
+            A_rec, B_rec = np.zeros_like(Alpha), np.zeros_like(Beta)
+            for s in range(n_steps):
+                sl = slice(s * nt, (s + 1) * nt)
+                A_rec[sl, sl], B_rec[sl, sl] = a_nt, b_nt
+                if s + 1 < n_steps:
+                    nsl = slice((s + 1) * nt, (s + 2) * nt)
+                    A_rec[nsl, s * nt + nt - 1] = -g_nt
+                    B_rec[nsl, s * nt + nt - 1] = -z_nt
+            if np.array_equal(A_rec, Alpha) and np.array_equal(B_rec, Beta):
+                self.n_steps = n_steps
+
+        lam_np, v_axes = separable_eigenbasis(K_op, M_op)
+        sdt = storage_dtype if storage_dtype is not None else self.dtype
+        fdt = torch.float32 if self.dtype == torch.bfloat16 else self.dtype
+        as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
+        self.Wdn, self.Wup = [], []
+        for d in range(dim):
+            nc = int(cells[d])
+            nd = nc * k + 1
+            v1 = np.ones(nd)
+            v1[k:nd - 1:k] = 2.0            # 1D dof valence
+            Vd = np.asarray(v_axes[d])
+            dn = np.zeros((nc * (k + 1), nd))
+            up = np.zeros((nd, nc * (k + 1)))
+            for c in range(nc):
+                rows = slice(c * (k + 1), (c + 1) * (k + 1))
+                colsg = slice(c * k, c * k + k + 1)
+                dn[rows, colsg] = Vd[c].T / v1[colsg][None, :]
+                up[colsg, rows] += Vd[c]
+            self.Wdn.append(as_t(dn, sdt))
+            self.Wup.append(as_t(up, sdt))
+        # eigenvalues in the flat interleaved (c1,a1,c2,a2,...) order of
+        # the down-applied grid
+        perm = []
+        for d in range(dim):
+            perm += [d, dim + d]
+        lam_grid = lam_np.reshape(tuple(int(c) for c in cells)
+                                  + (k + 1,) * dim)
+        lam = as_t(np.transpose(lam_grid, perm).reshape(-1), fdt)
+        self.GinvT = self.cvecT = self.TTg = None
+        if self.n_steps > 1:
+            a_, b_ = as_t(a_nt, fdt), as_t(b_nt, fdt)
+            g_, z_ = as_t(g_nt, fdt), as_t(z_nt, fdt)
+            Ginv = torch.linalg.inv(lam[:, None, None] * a_ + b_)
+            gz = lam[:, None] * g_ + z_
+            cvec = torch.einsum("nij,nj->ni", Ginv, gz)
+            self.GinvT = Ginv.permute(1, 2, 0).contiguous()  # (nt, nt, N)
+            self.cvecT = cvec.T.contiguous()                  # (nt, N)
+        else:
+            A_ = as_t(Alpha, self.dtype).to(fdt)
+            B_ = as_t(Beta, self.dtype).to(fdt)
+            self.TTg = torch.linalg.inv(lam[:, None, None] * A_ + B_
+                                        ).permute(1, 2, 0).contiguous()
+
+    def vmult(self, src: torch.Tensor) -> torch.Tensor:
+        """src: [n_blocks, *dofshape] residual -> additive patch updates."""
+        nb = src.shape[0]
+        w = src.to(self.dtype)
+        for d in range(self.dim):
+            w = axis_apply(self.Wdn[d], w, 1 + d)
+        gshape = w.shape[1:]
+        N = int(np.prod(gshape))
+        wf = w.reshape(nb, N).contiguous()
+        if self.n_steps > 1:
+            S = self.n_steps
+            w = time_solve(wf, self.GinvT, self.cvecT, S, nb // S, wf.dtype)
+        else:
+            TTg, wf = promote(self.TTg, wf)
+            w = torch.einsum("tsn,sn->tn", TTg, wf)
+        # back to the working dtype before the up matmuls
+        w = w.reshape((nb,) + tuple(gshape)).to(self.dtype)
+        for d in range(self.dim):
+            w = axis_apply(self.Wup[d], w, 1 + d)
+        return w.to(self.dtype)

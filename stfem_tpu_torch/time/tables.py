@@ -1,0 +1,181 @@
+"""Variational time-stepping weight tables.
+
+Dense (tiny) matrices defining the CGP(r) / DG(r) time discretizations and
+their multi-timestep block assembly (the first-order tables of the heat
+path; stfem_tpu's wave, Stokes and extrapolation tables are not ported
+yet).  All NumPy float64, computed at setup time;
+parity oracle is the reference's golden file tests/tp_02.output
+(reference: include/fe_time.h:157-744, include/fe_time.cc).
+
+Conventions (identical to the reference):
+  * the slab system for first-order problems reads
+        (Alpha (x) K + Beta (x) M) x = rhs,
+    with Alpha carrying the time mass (scaled by tau) pairing the stiffness
+    operator K, and Beta carrying the time derivative (+ DG jump) pairing the
+    mass operator M (reference include/operators.h:536-559).
+  * Gamma/Zeta are the single-column RHS couplings to the previous slab,
+    applied as  rhs = (Gamma (x) K + Zeta (x) M) x_prev
+    (reference include/fe_time.h:351-409, tests/tp_01.cc:160-168).
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+
+from ..types import TimeStepType, MGType
+from .quadrature import (LagrangeBasis, gauss, gauss_lobatto,
+                         gauss_radau_right)
+
+
+def get_time_quad(type_: TimeStepType, r: int) -> tuple[np.ndarray, np.ndarray]:
+    """Support points/weights of the time basis (fe_time.cc:152-161)."""
+    if type_ == TimeStepType.DG:
+        return gauss_radau_right(r + 1)
+    elif type_ == TimeStepType.CGP:
+        return gauss_lobatto(r + 1)
+    raise ValueError(f"unsupported time type {type_}")
+
+
+@lru_cache(maxsize=None)
+def get_cg_weights(r: int) -> tuple[np.ndarray, np.ndarray]:
+    """CGP(r) Petrov-Galerkin weights on the unit interval.
+
+    Trial space: Lagrange on the r+1 Gauss-Lobatto points; test space:
+    Lagrange on the last r of them.  Returns (mass, derivative), both (r, r+1):
+        mass[i,j] = int test_i trial_j dt,   der[i,j] = int test_i trial_j' dt
+    (reference include/fe_time.h:643-696).
+    """
+    trial_pts, _ = gauss_lobatto(r + 1)
+    trial = LagrangeBasis(trial_pts)
+    test = LagrangeBasis(trial_pts[1:])
+    qx, qw = gauss(r + 2)
+    mass = np.zeros((r, r + 1))
+    der = np.zeros((r, r + 1))
+    for i in range(r):
+        ti = test.value(i, qx)
+        for j in range(r + 1):
+            mass[i, j] = np.sum(qw * ti * trial.value(j, qx))
+            der[i, j] = np.sum(qw * ti * trial.derivative(j, qx))
+    return mass, der
+
+
+@lru_cache(maxsize=None)
+def get_dg_weights(r: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """DG(r) weights: Lagrange basis on r+1 right-Radau points.
+
+    Returns (mass, der_jump, jump):
+        mass[i,j]     = int phi_i phi_j dt                      (r+1, r+1)
+        der_jump[i,j] = int phi_i phi_j' dt + phi_i(0) phi_j(0) (r+1, r+1)
+        jump[i,0]     = phi_i(0)                                (r+1, 1)
+    (reference include/fe_time.h:698-744).
+    """
+    pts, _ = gauss_radau_right(r + 1)
+    basis = LagrangeBasis(pts)
+    qx, qw = gauss(r + 2)
+    n = r + 1
+    mass = np.zeros((n, n))
+    der_jump = np.zeros((n, n))
+    jump = np.zeros((n, 1))
+    v0 = np.array([float(basis.value(i, 0.0)) for i in range(n)])
+    for i in range(n):
+        vi = basis.value(i, qx)
+        jump[i, 0] = v0[i]
+        for j in range(n):
+            mass[i, j] = np.sum(qw * vi * basis.value(j, qx))
+            der_jump[i, j] = v0[i] * v0[j] + np.sum(
+                qw * vi * basis.derivative(j, qx))
+    return mass, der_jump, jump
+
+
+def split_lhs_rhs_cg(mass: np.ndarray, der: np.ndarray):
+    """Split the (r, r+1) CGP tables into LHS (r,r) + RHS column (r,1).
+
+    The first trial dof is the (known) value at the slab start; its column
+    moves to the RHS with flipped sign (reference include/fe_time.h:485-503).
+    Returns (Alpha, Beta, Gamma, Zeta).
+    """
+    return (mass[:, 1:].copy(), der[:, 1:].copy(),
+            -mass[:, :1].copy(), -der[:, :1].copy())
+
+
+def get_fe_time_weights(type_: TimeStepType, r: int, time_step_size: float,
+                        n_timesteps_at_once: int = 1):
+    """Assembled slab tables (Alpha, Beta, Gamma, Zeta).
+
+    Per-interval tables are scaled (Alpha and CGP-Gamma by tau) and stitched
+    into the block-bidiagonal multi-step system: the sub-diagonal couples each
+    step's first equation block to the last time dof of the previous step via
+    the (negated) RHS columns (reference include/fe_time.h:351-409).
+
+    DG convention quirk kept from the reference: in the *returned* tuple the
+    previous-slab coupling sits in Gamma (3rd slot) for DG -- the caller
+    constructs the RHS operator as (Gamma_K (x) K + Gamma_M (x) M) with
+    Gamma_K = zero, Gamma_M = returned Gamma for DG, while for CGP
+    Gamma pairs K and Zeta pairs M (see tests/tp_01.cc:160-168).
+    """
+    if type_ == TimeStepType.CGP:
+        a, b, g, z = split_lhs_rhs_cg(*get_cg_weights(r))
+        g = g * time_step_size
+    elif type_ == TimeStepType.DG:
+        mass, der_jump, jump = get_dg_weights(r)
+        a, b = mass.copy(), der_jump.copy()
+        g = np.zeros((r + 1, 1))
+        z = jump.copy()
+    else:
+        raise ValueError(f"unsupported time type {type_}")
+    a = a * time_step_size
+
+    nt = a.shape[0]
+    n = nt * n_timesteps_at_once
+    Alpha = np.zeros((n, n))
+    Beta = np.zeros((n, n))
+    Gamma = np.zeros((n, 1))
+    Zeta = np.zeros((n, 1))
+    for it in range(n_timesteps_at_once):
+        sl = slice(it * nt, (it + 1) * nt)
+        Alpha[sl, sl] = a
+        Beta[sl, sl] = b
+        if it < n_timesteps_at_once - 1:
+            col = it * nt + nt - 1
+            nsl = slice((it + 1) * nt, (it + 2) * nt)
+            Alpha[nsl, col] = -g[:, 0]
+            Beta[nsl, col] = -z[:, 0]
+    if type_ == TimeStepType.CGP:
+        Gamma[:nt, 0] = g[:, 0]
+        Zeta[:nt, 0] = z[:, 0]
+    else:  # DG: coupling vector lands in the Gamma slot (see docstring)
+        Gamma[:nt, 0] = z[:, 0]
+        Zeta[:nt, 0] = g[:, 0]
+    return Alpha, Beta, Gamma, Zeta
+
+
+def get_fe_time_weights_sequence(type_: TimeStepType, time_step_size: float,
+                                 n_timesteps_at_once: int,
+                                 mg_type_level: list[MGType],
+                                 poly_time_sequence: list[int]):
+    """Per-MG-level tables, finest last.
+
+    Walking the type ladder from the finest level: a k-level steps to the next
+    coarser time degree, a tau-level halves the steps-at-once and doubles tau
+    (reference include/fe_time.h:411-442).
+    """
+    n_levels = len(mg_type_level) + 1
+    out: list = [None] * n_levels
+    p_it = len(poly_time_sequence) - 1
+    n_at_once = n_timesteps_at_once
+    tau = time_step_size
+    out[-1] = get_fe_time_weights(type_, poly_time_sequence[p_it], tau,
+                                  n_at_once)
+    lvl = n_levels - 2
+    for mgt in reversed(mg_type_level):
+        if mgt == MGType.k:
+            p_it -= 1
+        elif mgt == MGType.tau:
+            n_at_once //= 2
+            tau *= 2.0
+        out[lvl] = get_fe_time_weights(type_, poly_time_sequence[p_it], tau,
+                                       n_at_once)
+        lvl -= 1
+    assert lvl == -1
+    return out
