@@ -5,18 +5,28 @@
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc builds the hand-written kernels from csrc/ (-Xptxas -v);
+  2. build: nvcc builds the hand-written kernels from csrc/, one process
+     per source, in parallel (-Xptxas -v);
   3. K1 parity: time_solve kernel vs its plain torch version at the bench
      shape (S=32, nt=3, N=512,000), bf16 and f32, with both times;
   4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
      B=128 in float64, with both times;
-  5. small-input check: the heat solve at 4^3 cells, ntao=4 on the GPU
-     against the same solve on the CPU (plain torch kernels) and against
-     the exact solution;
-  6. heat main path: bench_heat at its defaults (16^3 cells, 32 steps per
+  5. K4 parity: the grid chain (chain_down, then chain_up) vs its plain
+     torch version with Vanka-banded matrices at the heat fine level
+     (96 x 65^3 <-> 80^3) and the wave fine level (48 x 33^3 <-> 40^3),
+     bf16 and f32, with both times;
+  6. small-input checks: the heat and the wave solve at 4^3 cells,
+     ntao=4 on the GPU against the same solve on the CPU (plain torch
+     kernels) and against the exact solution;
+  7. heat main path: bench_heat at its defaults (16^3 cells, 32 steps per
      slab) for the probe plus 2 timed slabs and one profiled, untimed
      slab; every slab must reach a TRUE relative residual <= 1e-8, and
-     the launch counts of K1 and K2 over this run must be > 0.
+     K1, K2 and K4 (both chains) must each launch in this run;
+  8. wave main path: bench_wave at its defaults (8^3 cells, 16 steps per
+     slab) for the probe plus 2 timed slabs and one profiled, untimed
+     slab; every slab must reach TRUE <= 1e-8, the probe's recovered v
+     must agree with the dense FP64 oracle to < 1e-9, and K2 and K4 (both
+     chains) must each launch in this run.
 Then it prints the nvidia-smi line, a JSON line describing the kernels,
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the stfem_tpu_torch package beside it, it exits non-zero and
@@ -52,6 +62,17 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def _vanka_band(nc: int, k: int, gen, dev):
+    """A random (nc(k+1), nc k + 1) matrix with the Vanka down band: row
+    c(k+1)+a reads dofs ck..ck+k (stmg/vanka.py)."""
+    import torch
+    m = torch.zeros((nc * (k + 1), nc * k + 1), device=dev)
+    for c in range(nc):
+        m[c * (k + 1):(c + 1) * (k + 1), c * k:c * k + k + 1] = torch.randn(
+            (k + 1, k + 1), generator=gen, device=dev)
+    return m
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -59,9 +80,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from stfem_tpu_torch import bench_heat
+        from stfem_tpu_torch import bench_heat, bench_wave
         from stfem_tpu_torch.mesh.grid import StructuredMesh
         from stfem_tpu_torch.ops import cuda_kernels
+        from stfem_tpu_torch.ops.grid_chain import (chain_down,
+                                                    chain_down_reference,
+                                                    chain_up,
+                                                    chain_up_reference)
         from stfem_tpu_torch.ops.kron_pair import (kron_pair,
                                                    kron_pair_reference)
         from stfem_tpu_torch.ops.kronfac import KronAssembled
@@ -139,58 +164,113 @@ def main() -> int:
     del x, kron
     torch.cuda.empty_cache()
 
-    # 5. small input: GPU kernels vs the CPU plain path, and vs the exact
+    # 5. K4 parity at the Vanka fine levels of both main paths: the down
+    #    chain, then the up chain on its output
+    for label, nb, nc in (("heat", 96, 16), ("wave", 48, 8)):
+        k, n = 4, nc * 4 + 1
+        for dt, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
+            dn = [_vanka_band(nc, k, gen, dev).to(dt) for _ in range(3)]
+            up = [_vanka_band(nc, k, gen, dev).T.contiguous().to(dt)
+                  for _ in range(3)]
+            x = torch.randn((nb, n, n, n), generator=gen, device=dev).to(dt)
+            w = chain_down(x, dn)
+            wr = chain_down_reference(x, dn)
+            y = chain_up(w, up)
+            yr = chain_up_reference(w, up)
+            err = max(float((w.float() - wr.float()).abs().max()),
+                      float((y.float() - yr.float()).abs().max()))
+            rel = max(float((w.float() - wr.float()).abs().max()
+                            / wr.float().abs().max()),
+                      float((y.float() - yr.float()).abs().max()
+                            / yr.float().abs().max()))
+            del wr, yr
+            ms = (_cuda_ms(lambda: chain_down(x, dn), 10)
+                  + _cuda_ms(lambda: chain_up(w, up), 10))
+            plain = (_cuda_ms(lambda: chain_down_reference(x, dn), 3)
+                     + _cuda_ms(lambda: chain_up_reference(w, up), 3))
+            print(f"# K4 grid_chain {label} fine {nb} x {n}^3 <-> "
+                  f"{nc * (k + 1)}^3 {str(dt)[6:]}: max_abs_err {err:.3e} "
+                  f"(rel to max {rel:.3e}, tol {tol:g}) kernel down+up "
+                  f"{ms:.4f} ms plain {plain:.4f} ms", flush=True)
+            if not rel <= tol:
+                raise AssertionError("K4 disagrees with its plain version")
+            if dt == torch.bfloat16 and label == "heat":
+                report["grid_chain"] = (err, ms, plain)
+            del x, w, y
+    torch.cuda.empty_cache()
+
+    # 6. small inputs: GPU kernels vs the CPU plain path, and vs the exact
     #    solution at the end of the last slab
     torch.set_num_threads(1)
-    small = {}
-    for where in ("cuda", "cpu"):
-        info, xl = bench_heat.run(4, 4, n_slabs=3, device=where,
-                                  eig_proxy_cells=2)
-        small[where] = (info, xl[-1].cpu())
-    (ig, xg), (ic, xc) = small["cuda"], small["cpu"]
-    diff = float((xg - xc).norm() / xc.norm())
     m4 = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=1)
-    exact = heat.exact_solution(torch.as_tensor(
-        m4.dof_coordinates(4), dtype=torch.float64), 3 * 4 / 16.0)
-    ex_err = float((xg - exact).norm() / exact.norm())
-    print(f"# small 4^3 ntao=4: V-cycles/slab gpu {ig['iters']} cpu "
-          f"{ic['iters']}, TRUE rel gpu {ig['true_rels']} cpu "
-          f"{ic['true_rels']}, |x_gpu - x_cpu|/|x_cpu| {diff:.2e} "
-          f"(tol 1e-6), error vs exact {ex_err:.2e} (tol 1e-3)",
-          flush=True)
-    if not (ig["converged"] and ic["converged"] and diff <= 1e-6
-            and ex_err <= 1e-3
-            and all(abs(a - b) <= 1 for a, b in zip(ig["iters"],
-                                                    ic["iters"]))):
-        raise AssertionError("small-input check failed")
+    coords4 = torch.as_tensor(m4.dof_coordinates(4), dtype=torch.float64)
+    for label, runner in (
+            ("heat", lambda d: bench_heat.run(4, 4, n_slabs=3, device=d,
+                                              eig_proxy_cells=2)),
+            ("wave", lambda d: bench_wave.run(4, 4, n_slabs=3, device=d))):
+        small = {}
+        for where in ("cuda", "cpu"):
+            info, xl = runner(where)
+            small[where] = (info, xl[-1].cpu())
+        (ig, xg), (ic, xc) = small["cuda"], small["cpu"]
+        diff = float((xg - xc).norm() / xc.norm())
+        exact = heat.exact_solution(coords4, 3 * 4 / 16.0)
+        ex_err = float((xg - exact).norm() / exact.norm())
+        print(f"# small {label} 4^3 ntao=4: V-cycles/slab gpu "
+              f"{ig['iters']} cpu {ic['iters']}, TRUE rel gpu "
+              f"{ig['true_rels']} cpu {ic['true_rels']}, "
+              f"|x_gpu - x_cpu|/|x_cpu| {diff:.2e} (tol 1e-6), error vs "
+              f"exact {ex_err:.2e} (tol 1e-3)", flush=True)
+        if not (ig["converged"] and ic["converged"] and diff <= 1e-6
+                and ex_err <= 1e-3
+                and all(abs(a - b) <= 1
+                        for a, b in zip(ig["iters"], ic["iters"]))):
+            raise AssertionError(f"small-input {label} check failed")
 
-    # 6. the heat main path at the bench defaults
-    time_solve.launches = 0
-    kron_pair.launches = 0
-    info, _ = bench_heat.run(16, 32, n_slabs=2, device="cuda", profile=True)
-    launches = {"time_solve": time_solve.launches,
-                "kron_pair": kron_pair.launches}
-    prof = info.pop("profile")
-    print(json.dumps(info), flush=True)
-    print(f"# profile of one more slab (untimed): device busy "
-          f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall, "
-          f"{prof['n_kernel_launches']} launches; top ops (ms) "
-          f"{prof['top_ops_ms'][:5]}", flush=True)
-    print(json.dumps(bench_heat.metric_line(info)), flush=True)
-    print(f"# heat 16^3 ntao=32: V-cycles/slab {info['iters']}, TRUE rel "
-          f"{info['true_rels']}, probe floor {info['probe_floor']:.3e}, "
-          f"setup {info['setup_s']:.1f} s, {info['dofs_per_s']:.4e} "
-          f"space-time DoF/s, launches {launches}", flush=True)
-    if not (info["converged"]
-            and all(r <= 1e-8 for r in info["true_rels"])):
-        raise AssertionError("heat slab solve did not reach TRUE <= 1e-8")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    # 7-8. the main paths at the bench defaults, each with the launch
+    #      counts set to 0 just before it and read just after
+    wrappers = {"time_solve": time_solve, "kron_pair": kron_pair,
+                "chain_down": chain_down, "chain_up": chain_up}
+    path_kernels = {"heat": ("time_solve", "kron_pair", "chain_down",
+                             "chain_up"),
+                    "wave": ("kron_pair", "chain_down", "chain_up")}
+    launches = dict.fromkeys(wrappers, 0)
+    for label, bench, args in (("heat", bench_heat, (16, 32)),
+                               ("wave", bench_wave, (8, 16))):
+        for w in wrappers.values():
+            w.launches = 0
+        info, _ = bench.run(*args, n_slabs=2, device="cuda", profile=True)
+        counts = {name: w.launches for name, w in wrappers.items()}
+        prof = info.pop("profile")
+        print(json.dumps(info), flush=True)
+        print(f"# {label}: profile of one more slab (untimed): device busy "
+              f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s "
+              f"wall (share {prof['device_busy_share']:.4f}), "
+              f"{prof['n_kernel_launches']} launches; top ops (ms) "
+              f"{prof['top_ops_ms'][:6]}", flush=True)
+        print(json.dumps(bench.metric_line(info)), flush=True)
+        print(f"# {label} {args[0]}^3 ntao={args[1]}: V-cycles/slab "
+              f"{info['iters']}, TRUE rel {info['true_rels']}, probe floor "
+              f"{info['probe_floor']:.3e}, setup {info['setup_s']:.1f} s, "
+              f"{info['dofs_per_s']:.4e} space-time DoF/s, launches "
+              f"{counts}", flush=True)
+        if not (info["converged"]
+                and all(r <= 1e-8 for r in info["true_rels"])):
+            raise AssertionError(f"{label} slab solve did not reach TRUE "
+                                 "<= 1e-8")
+        missing = [n for n in path_kernels[label] if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never ran: {missing}")
+        for name, c in counts.items():
+            launches[name] += c
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),
                "kron_pair": ("stfem_tpu_torch/csrc/kron_pair.cu",
-                             "stfem_tpu/ops/pallas_ffresid.py:120")}
+                             "stfem_tpu/ops/pallas_ffresid.py:120"),
+               "grid_chain": ("stfem_tpu_torch/csrc/grid_chain.cu",
+                              "stfem_tpu/ops/pallas_grid.py:158")}
+    launches["grid_chain"] = launches["chain_down"] + launches["chain_up"]
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": report[name][0], "ms": report[name][1],

@@ -1,6 +1,8 @@
-"""Spatial right-hand-side assembly (counterpart of
-stfem_tpu/integrators.py::ForceAssembler; the time integrator classes are
-not ported -- the heat driver is bench_heat.py)."""
+"""Spatial right-hand-side assembly and the wave velocity recovery
+(counterpart of stfem_tpu/integrators.py::ForceAssembler and of the DG
+recovery of TimeIntegratorWave._solve_wave_impl; the time integrator
+classes themselves are not ported -- bench_heat.py and bench_wave.py run
+the time loops)."""
 from __future__ import annotations
 
 from typing import Callable
@@ -50,3 +52,49 @@ class ForceAssembler:
             fq = self.rhs_fn(self.coords, ts.reshape(lead))
             fq = fq * self.jxw * scales.reshape(lead)
             return self._integrate(fq)
+
+
+class WaveVelocityRecovery:
+    """v = du/dt of a solved DG wave slab from its u (the Schur elimination
+    of the wave tables, reference include/time_integrators.h:400-447):
+    per step s, v_s = AixB u_s + AixG[:, 0] u_{s-1}[last] with
+    AixB = A1^{-1} B1 and AixG = -A1^{-1} G1 from the single-step
+    first-order tables, u_{-1}[last] the previous slab's u.
+
+    all_steps() is the dense recovery of every step in float32 (the bench
+    form, bench.py:646-660); last() is the last step's v in float64, which
+    feeds the next slab's rhs and replaces stfem_tpu's float-float pair."""
+
+    def __init__(self, Alpha_1, Beta_1, Gamma_1, n_steps: int,
+                 device="cpu"):
+        A1 = np.asarray(Alpha_1, np.float64)
+        Ainv = np.linalg.inv(A1)
+        AixB = Ainv @ np.asarray(Beta_1, np.float64)
+        AixG = -(Ainv @ np.asarray(Gamma_1, np.float64))[:, 0]  # DG sign
+        self.nt, self.n_steps = A1.shape[0], n_steps
+        dev = torch.device(device)
+        self.AixB = torch.as_tensor(AixB, dtype=torch.float32, device=dev)
+        self.AixG = torch.as_tensor(AixG, dtype=torch.float32, device=dev)
+        self.AixB_last = torch.as_tensor(AixB[-1], dtype=torch.float64,
+                                         device=dev)
+        self.AixG_last = float(AixG[-1])
+
+    def all_steps(self, u: torch.Tensor, prev_u: torch.Tensor):
+        """u: [n_steps * nt, *dof], prev_u: [*dof] -> v of u's shape, in
+        float32."""
+        us = u.to(torch.float32).reshape((self.n_steps, self.nt)
+                                         + u.shape[1:])
+        pu = torch.cat([prev_u.to(torch.float32)[None, None],
+                        us[:-1, -1:]], dim=0)
+        lead = (1, self.nt) + (1,) * (u.ndim - 1)
+        v = (torch.einsum("ij,sj...->si...", self.AixB, us)
+             + self.AixG.reshape(lead) * pu)
+        return v.reshape(u.shape)
+
+    def last(self, u64: torch.Tensor, prev_u64: torch.Tensor):
+        """The last step's v in float64."""
+        nt = self.nt
+        pu = u64[-nt - 1] if self.n_steps > 1 else prev_u64
+        with full_precision():
+            return (torch.einsum("j,j...->...", self.AixB_last, u64[-nt:])
+                    + self.AixG_last * pu)

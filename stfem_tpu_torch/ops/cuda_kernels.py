@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels of csrc/.
 
-The kernels have a plain C interface and are compiled by nvcc into one
-shared library, loaded with ctypes (no PyTorch headers: the build takes
-seconds).  The build runs at first use, from the sources in this package
-alone, into build/kernels/ at the repository root; it is redone whenever a
-source is newer than the library.  Nothing here runs when the package is
-imported.
+The kernels have a plain C interface and are compiled by nvcc (one
+process per source, in parallel) into one shared library, loaded with
+ctypes (no PyTorch headers: the build takes seconds).  The build runs at
+first use, from the sources in this package alone, into build/kernels/ at
+the repository root; it is redone whenever a source is newer than the
+library.  Nothing here runs when the package is imported.
 """
 from __future__ import annotations
 
@@ -17,11 +17,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("time_solve.cu", "kron_pair.cu")
+SOURCES = ("time_solve.cu", "kron_pair.cu", "grid_chain.cu")
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "kernels"
             / "libstfem_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 
@@ -37,24 +37,37 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False, verbose: bool = False) -> tuple[float, str]:
-    """Compile csrc/*.cu into LIB_PATH if it is missing or stale.
-    Returns (seconds spent, compiler output).  verbose adds -Xptxas -v
-    (registers, shared memory and spills per kernel)."""
+    """Compile csrc/*.cu into LIB_PATH if it is missing or stale: one nvcc
+    per source, all started together, then one link.  Returns (seconds
+    spent, compiler output).  verbose adds -Xptxas -v (registers, shared
+    memory and spills per kernel)."""
     srcs = [CSRC / s for s in SOURCES]
     if (not force and LIB_PATH.exists()
             and all(LIB_PATH.stat().st_mtime >= s.stat().st_mtime
                     for s in srcs)):
         return 0.0, ""
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-           + ["-o", str(tmp)] + [str(s) for s in srcs])
+    nvcc, tag = _nvcc(), f".{os.getpid()}.tmp"
+    objs = [LIB_PATH.parent / (s.stem + tag + ".o") for s in srcs]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    procs = [subprocess.Popen(
+        [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+        + ["-c", "-o", str(o), str(s)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("nvcc failed:\n" + log)
+    tmp = LIB_PATH.with_suffix(tag)
+    link = subprocess.run([nvcc] + NVCC_FLAGS + ["-shared", "-o", str(tmp)]
+                          + [str(o) for o in objs], capture_output=True,
+                          text=True)
+    for o in objs:
+        o.unlink()
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
     os.replace(tmp, LIB_PATH)
-    return time.time() - t0, proc.stdout + proc.stderr
+    return time.time() - t0, log + link.stdout + link.stderr
 
 
 def library() -> ctypes.CDLL:
@@ -70,6 +83,8 @@ def library() -> ctypes.CDLL:
     lib.stfem_kron_pair.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32,
                                     i32, i32, i32, i32, vp]
     lib.stfem_kron_pair.restype = i32
+    lib.stfem_grid_chain.argtypes = ([vp] * 6 + [i64] + [i32] * 9 + [vp])
+    lib.stfem_grid_chain.restype = i32
     _LIB = lib
     return lib
 

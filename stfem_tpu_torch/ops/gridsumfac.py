@@ -1,6 +1,8 @@
 """Per-axis dense contraction (counterpart of
-stfem_tpu/ops/gridsumfac.py::axis_apply; the GridSumFac route itself is not
-ported yet)."""
+stfem_tpu/ops/gridsumfac.py::axis_apply): the level operators' Kronecker
+pair, the transfers and the plain version of kernel K4 use it.  The
+fused per-block chain itself (K4, pallas_grid.py) is ops/grid_chain.py,
+which the Vanka runs; the GridSumFac operator route is not ported yet."""
 from __future__ import annotations
 
 import torch

@@ -1,20 +1,27 @@
 """Space-time multigrid preconditioner (counterpart of
 stfem_tpu/stmg/gmg.py; the reference's GMG, stmg.h:1047-1419).
 
-One GMG object owns the heat hierarchy: per-level slab operators (level
-dtype, bf16 with level_bf16), grid-mode Vanka smoothers, Relaxation/
+One GMG object owns the heat or wave hierarchy: per-level slab operators
+(level dtype, bf16 with level_bf16), grid-mode Vanka smoothers, Relaxation/
 Identity smoother wiring with deterministic eigenvalue estimates,
 separable space transfers and dense time transfers.  The V-cycle is
-bench.py's tuned one (bench.py:886-923), the only configuration ported:
+bench.py's tuned heat one (bench.py:886-923):
 
   pre-smooth:   u = S(d), S = 2 Relaxation sweeps with the level's Vanka
   post-smooth:  u += S(d - A u)
   Identity levels (paired space/time levels of the reference's ladder)
   are skipped; the coarsest level is solved by a dense float32 inverse.
+  The wave V-cycle is run_wave_bench's (bench.py:545-571): the same, with
+  variable smoothing -- on level l each pre- and post-smoothing applies S
+  2^(max_level - l) times (stfem_tpu's GMGParams default `variable`,
+  gmg.py:228-265), where the heat bench applies it once.
 
-The wave and Stokes builders, the Chebyshev smoother, the variable
-smoothing steps, the Smoother/GMRES coarse solves and the estimate cache
-of stfem_tpu are not ported.
+The wave hierarchy takes the Schur-reduced per-level tables
+(get_fe_time_weights_wave_sequence) and the wave bench's estimates: no
+proxy, deal.II's 20-step power method on every full level
+(eig_exact=False).  build_stmg_stokes, the Chebyshev smoother, the
+capped/asymmetric smoothing-step knobs, the Smoother/GMRES coarse solves
+and the estimate cache of stfem_tpu are not ported.
 """
 from __future__ import annotations
 
@@ -28,9 +35,10 @@ from ..ops.spatial import LaplaceMassOperator
 from ..system import SystemMatrix
 from ..time.mg_seq import (get_mg_sequence, get_poly_mg_sequence,
                            get_precondition_stmg_types)
-from ..time.tables import get_fe_time_weights_sequence
+from ..time.tables import (get_fe_time_weights_sequence,
+                           get_fe_time_weights_wave_sequence)
 from ..types import (CoarseningType, MGType, PolynomialCoarseningSequenceType,
-                     SupportedSmoothers, TimeStepType)
+                     ProblemType, SupportedSmoothers, TimeStepType)
 from .smoother import (IdentitySmoother, RelaxationSmoother,
                        estimate_eigenvalues, relaxation_parameters)
 from .transfers import (SpaceTransfer, TimeTransfer, h_prolongation_global_1d,
@@ -51,9 +59,14 @@ class GMGParams:
     eig_proxy_cells: > 0 estimates the smoother eigenvalues on a proxy of
         this many cells per axis (same cell size, degree and 2-step tables)
         for every level larger than it; lambda_max(P A) is h- and
-        S-independent."""
+        S-independent for heat (not for wave: 0 there).
+    eig_exact: converged ARPACK lambda_max (no safety factor) for
+        estimates up to ARNOLDI_MAX_N unknowns; False = deal.II's 20-step
+        power method with the 1.2 safety factor everywhere (the wave
+        bench's choice)."""
     level_bf16: bool = True
     eig_proxy_cells: int = 4
+    eig_exact: bool = True
 
 
 @dataclass
@@ -67,12 +80,14 @@ class _Level:
 class GMG:
     DIRECT_COARSE_MAX = 16384
 
-    def __init__(self, levels, transfers, dtype, precondition_sequence):
+    def __init__(self, levels, transfers, dtype, precondition_sequence,
+                 variable: bool = False):
         self.levels = levels
         self.transfers = transfers
         self.dtype = dtype
         self.precondition_sequence = precondition_sequence
         self.max_level = len(levels) - 1
+        self.variable = variable
         self.coarse_Ainv = self._assemble_direct_coarse()
 
     def _assemble_direct_coarse(self):
@@ -98,14 +113,22 @@ class GMG:
                 self.dtype)
         lvl = self.levels[level]
         skip = isinstance(lvl.smoother, IdentitySmoother)
-        u = torch.zeros_like(defect) if skip else lvl.smoother.vmult(defect)
+        steps = 2 ** (self.max_level - level) if self.variable else 1
+        if skip:
+            u = torch.zeros_like(defect)
+        else:
+            u = lvl.smoother.vmult(defect)
+            for _ in range(steps - 1):
+                u = u + lvl.smoother.vmult(defect - lvl.matrix.vmult(u))
         r = defect - lvl.matrix.vmult(u)
         dc = self.transfers[level - 1].restrict(r)
         uc = self._level_v_step(level - 1, dc)
         u = u + self.transfers[level - 1].prolongate(uc)
         if skip:
             return u
-        return u + lvl.smoother.vmult(defect - lvl.matrix.vmult(u))
+        for _ in range(steps):
+            u = u + lvl.smoother.vmult(defect - lvl.matrix.vmult(u))
+        return u
 
     def vmult(self, src):
         """One V-cycle in the level precision; cast at the boundary
@@ -135,11 +158,13 @@ def _two_step_tables(Alpha, Beta):
 def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                type_: TimeStepType, n_timesteps_at_once: int,
                time_step: float, params: GMGParams | None = None,
-               dtype=torch.float32, device="cpu") -> GMG:
-    """Assemble the STMG hierarchy for the heat cycle with stfem_tpu's
-    ladder conventions (space_and_time coarsening, p-multigrid, bisected
-    space and time degree sequences down to 1 and fe_degree-1 resp., one
-    tau level).  Everything lives on `device`; the estimates sweep there."""
+               dtype=torch.float32, device="cpu",
+               problem: ProblemType = ProblemType.heat) -> GMG:
+    """Assemble the STMG hierarchy for the heat or wave cycle with
+    stfem_tpu's ladder conventions (space_and_time coarsening, p-multigrid,
+    bisected space and time degree sequences down to 1 and fe_degree-1
+    resp., one tau level).  Everything lives on `device`; the estimates
+    sweep there."""
     params = params or GMGParams()
     if params.level_bf16:
         dtype = torch.bfloat16
@@ -162,8 +187,11 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
     precond_seq = get_precondition_stmg_types(
         mg_type_level, coarsening, False, False,
         SupportedSmoothers.Relaxation)
-    fetw = get_fe_time_weights_sequence(
-        type_, time_step, n_timesteps_at_once, mg_type_level, poly_time)
+    table_seq = (get_fe_time_weights_wave_sequence
+                 if problem == ProblemType.wave
+                 else get_fe_time_weights_sequence)
+    fetw = table_seq(type_, time_step, n_timesteps_at_once, mg_type_level,
+                     poly_time)
 
     # walk the level state from fine to coarse
     n_levels = len(mg_type_level) + 1
@@ -232,8 +260,8 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                 v_est = vanka(Kp, Mp, A_e, B_e, s_e)
                 mask = Kp.mask_np
                 shape = (np.asarray(A_e).shape[0],) + pm.dof_shape(deg_l)
-            method = ("arnoldi" if int(np.prod(shape)) <= ARNOLDI_MAX_N
-                      else "power")
+            method = ("arnoldi" if params.eig_exact
+                      and int(np.prod(shape)) <= ARNOLDI_MAX_N else "power")
             info = estimate_eigenvalues(m_est, v_est, shape, mask,
                                         device=device, method=method)
             if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
@@ -262,6 +290,7 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                 type_, mgt, rt_hi + 1 if dg else rt_hi,
                 rt_lo + 1 if dg else rt_lo, n_at_once[l], dtype, device))
 
-    gmg = GMG(levels, transfers, dtype, precond_seq)
+    gmg = GMG(levels, transfers, dtype, precond_seq,
+              variable=problem == ProblemType.wave)
     gmg.mg_type_level = mg_type_level
     return gmg

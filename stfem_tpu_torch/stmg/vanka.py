@@ -10,15 +10,20 @@ per-axis generalized eigenbases V_d of the 1D patch matrices, so
 The apply is "grid" form: the gather, the valence scaling and V_d^T fold
 into one banded matrix per axis (Wdn), the per-position time solve runs on
 the flat eigen-position axis (kernel K1, ops/time_solve.py, for
-multi-step slabs), and the transposed matrices (Wup) apply V_d and the
-overlap-add scatter.  The dense and cell-local patch modes are not ported.
+multi-step slabs with rank-1 step coupling; a dense per-position T x T
+solve otherwise, e.g. for the wave tables), and the transposed matrices
+(Wup) apply V_d and the overlap-add scatter.  Both chains of per-axis
+matrices run as kernel K4 (ops/grid_chain.py), always: stfem_tpu's
+STFEM_PALLAS_GRID=1 path, whose rotated factor order (factor_perm) is not
+carried over.  The dense and cell-local patch modes are not ported.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.gridsumfac import axis_apply, promote
+from ..ops.grid_chain import chain_down, chain_up
+from ..ops.gridsumfac import promote
 from ..ops.kronfac import assemble_1d_dense
 from ..ops.spatial import LaplaceMassOperator
 from ..ops.time_solve import time_solve
@@ -166,20 +171,16 @@ class PreconditionVanka:
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
         """src: [n_blocks, *dofshape] residual -> additive patch updates."""
         nb = src.shape[0]
-        w = src.to(self.dtype)
-        for d in range(self.dim):
-            w = axis_apply(self.Wdn[d], w, 1 + d)
+        w = chain_down(src.to(self.dtype), self.Wdn)
         gshape = w.shape[1:]
         N = int(np.prod(gshape))
-        wf = w.reshape(nb, N).contiguous()
+        wf = w.reshape(nb, N)
         if self.n_steps > 1:
             S = self.n_steps
             w = time_solve(wf, self.GinvT, self.cvecT, S, nb // S, wf.dtype)
         else:
             TTg, wf = promote(self.TTg, wf)
             w = torch.einsum("tsn,sn->tn", TTg, wf)
-        # back to the working dtype before the up matmuls
+        # back to the working dtype before the up chain
         w = w.reshape((nb,) + tuple(gshape)).to(self.dtype)
-        for d in range(self.dim):
-            w = axis_apply(self.Wup[d], w, 1 + d)
-        return w.to(self.dtype)
+        return chain_up(w, self.Wup)

@@ -1,9 +1,9 @@
 """Variational time-stepping weight tables.
 
 Dense (tiny) matrices defining the CGP(r) / DG(r) time discretizations and
-their multi-timestep block assembly (the first-order tables of the heat
-path; stfem_tpu's wave, Stokes and extrapolation tables are not ported
-yet).  All NumPy float64, computed at setup time;
+their multi-timestep block assembly and the Schur-reduced wave tables
+(stfem_tpu's Stokes and extrapolation tables are not ported yet).  All
+NumPy float64, computed at setup time;
 parity oracle is the reference's golden file tests/tp_02.output
 (reference: include/fe_time.h:157-744, include/fe_time.cc).
 
@@ -150,6 +150,90 @@ def get_fe_time_weights(type_: TimeStepType, r: int, time_step_size: float,
     return Alpha, Beta, Gamma, Zeta
 
 
+def get_fe_time_weights_wave(type_: TimeStepType, Alpha: np.ndarray,
+                             Beta: np.ndarray, Gamma: np.ndarray,
+                             Zeta: np.ndarray, n_timesteps_at_once: int = 1):
+    """Schur-reduced tables for the 2nd-order (acoustic wave) formulation.
+
+    Starting from the single-interval first-order tables, the velocity
+    v = du/dt is eliminated analytically, yielding the u-only system
+        (Alpha_lhs (x) K + Beta_lhs (x) M) u = rhs(u_prev, v_prev)
+    with Beta_lhs = Beta Alpha^{-1} Beta, plus lower-triangular cross-step
+    coupling with geometric decay gxai = Gamma_last/Alpha_last
+    (reference include/fe_time.h:157-305).
+
+    Returns (Alpha_lhs, Beta_lhs, rhs_uK, rhs_uM, rhs_vM): the three RHS
+    columns multiply {K u_prev, M u_prev, M v_prev} respectively.
+    """
+    Ainv = np.linalg.inv(Alpha)
+    BAiB = Beta @ Ainv @ Beta
+    BAiG = Beta @ Ainv @ Gamma
+    m = Alpha.shape[0]
+    gxai = Gamma[m - 1, 0] / Alpha[m - 1, m - 1]
+    GAiG = Gamma * gxai
+    beta_last_row = Beta[m - 1:m, :]          # (1, m)
+    GAiB = (Gamma @ beta_last_row) / Alpha[m - 1, m - 1]
+
+    nt = m
+    n = nt * n_timesteps_at_once
+    A_lhs = np.zeros((n, n))
+    B_lhs = np.zeros((n, n))
+    rhs_uK = np.zeros((n, 1))
+    rhs_uM = np.zeros((n, 1))
+    rhs_vM = np.zeros((n, 1))
+
+    if type_ == TimeStepType.CGP:
+        BAiZ = Beta @ Ainv @ Zeta
+        ZmBAiG = Zeta - BAiG
+        ZmBAiB = (ZmBAiG @ beta_last_row) / Alpha[m - 1, m - 1]
+        zxai = Zeta[m - 1, 0] / Alpha[m - 1, m - 1]
+        for it in range(n_timesteps_at_once):
+            for jt in range(it + 1):
+                ro = it * nt
+                co = jt * nt
+                if it == 0 and jt == 0:
+                    rhs_uK[:nt, 0] = Gamma[:, 0]
+                    rhs_uM[:nt, 0] = BAiZ[:, 0]
+                    rhs_vM[:nt, 0] = ZmBAiG[:, 0]
+                elif jt == 0:
+                    rhs_uM[ro:ro + nt, 0] = (-zxai * gxai ** (it - 1)
+                                             * ZmBAiG[:, 0])
+                    rhs_vM[ro:ro + nt, 0] = gxai ** it * ZmBAiG[:, 0]
+                if it == jt + 1:  # first lower block diagonal: column of the
+                    # previous step's last dof
+                    A_lhs[ro:ro + nt, co + nt - 1] = -Gamma[:, 0]
+                    B_lhs[ro:ro + nt, co + nt - 1] += -BAiZ[:, 0]
+                if it == jt:
+                    A_lhs[ro:ro + nt, co:co + nt] = Alpha
+                    B_lhs[ro:ro + nt, co:co + nt] += BAiB
+                else:  # strict lower triangle: decaying coupling
+                    B_lhs[ro:ro + nt, co:co + nt] += (
+                        -gxai ** (it - jt - 1) * ZmBAiB)
+                    if it > 1 and it - 1 > jt:
+                        B_lhs[ro:ro + nt, co + nt - 1] += (
+                            gxai ** (it - jt - 2) * zxai * ZmBAiG[:, 0])
+    elif type_ == TimeStepType.DG:
+        for it in range(n_timesteps_at_once):
+            ro = it * nt
+            if it == 0:
+                rhs_uM[:nt, 0] = BAiG[:, 0]
+                rhs_vM[:nt, 0] = Gamma[:, 0]
+            if it == 1:
+                rhs_uM[nt:2 * nt, 0] = -GAiG[:, 0]
+            if it < n_timesteps_at_once - 1:
+                # 1st lower block diagonal
+                B_lhs[ro + nt:ro + 2 * nt, ro:ro + nt] += -GAiB
+                B_lhs[ro + nt:ro + 2 * nt, ro + nt - 1] += -BAiG[:, 0]
+            if it < n_timesteps_at_once - 2:
+                # 2nd lower diagonal (column of step it's last dof)
+                B_lhs[ro + 2 * nt:ro + 3 * nt, ro + nt - 1] = GAiG[:, 0]
+            A_lhs[ro:ro + nt, ro:ro + nt] = Alpha
+            B_lhs[ro:ro + nt, ro:ro + nt] += BAiB
+    else:
+        raise ValueError(f"unsupported time type {type_}")
+    return A_lhs, B_lhs, rhs_uK, rhs_uM, rhs_vM
+
+
 def get_fe_time_weights_sequence(type_: TimeStepType, time_step_size: float,
                                  n_timesteps_at_once: int,
                                  mg_type_level: list[MGType],
@@ -179,3 +263,22 @@ def get_fe_time_weights_sequence(type_: TimeStepType, time_step_size: float,
         lvl -= 1
     assert lvl == -1
     return out
+
+
+def get_fe_time_weights_wave_sequence(type_: TimeStepType,
+                                      time_step_size: float,
+                                      n_timesteps_at_once: int,
+                                      mg_type_level: list[MGType],
+                                      poly_time_sequence: list[int]):
+    """Per-level wave tables (reference include/fe_time.h:444-474).
+
+    Note the single-interval tables feed get_fe_time_weights_wave with the
+    level's n_timesteps_at_once folded in by the first-order assembly already,
+    hence n_timesteps_at_once=1 in the wave expansion (matching the reference,
+    which passes the assembled multi-step Alpha..Zeta).
+    """
+    fo = get_fe_time_weights_sequence(type_, time_step_size,
+                                      n_timesteps_at_once, mg_type_level,
+                                      poly_time_sequence)
+    return [get_fe_time_weights_wave(type_, a, b, g, z)
+            for (a, b, g, z) in fo]

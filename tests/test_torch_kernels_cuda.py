@@ -7,11 +7,15 @@ This file imports neither jax nor stfem_tpu.
 Tolerances, relative to the plain version's max norm: K1 float32 1e-5
 (f32 sums, FMA contraction), K1 bf16 8e-3 (one bf16 rounding of the
 output, 2^-8, either side); K2 float64 1e-14 (the same sums in the same
-order up to FMA contraction)."""
+order up to FMA contraction); K4 float32 1e-5 (f32 sums in another order),
+bf16 8e-3 (one bf16 rounding of the f32 sums, either side), float64
+1e-13."""
 import pytest
 import torch
 
 from stfem_tpu_torch.mesh.grid import StructuredMesh
+from stfem_tpu_torch.ops.grid_chain import (chain_down, chain_down_reference,
+                                            chain_up, chain_up_reference)
 from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
 from stfem_tpu_torch.ops.kronfac import KronAssembled
 from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
@@ -85,3 +89,79 @@ def test_kron_pair_kernel_rejects(dev):
     D = [torch.zeros((3, 5), device=dev, dtype=torch.float64)] * 3
     with pytest.raises(ValueError):
         kron_pair(torch.zeros((1, 5, 5, 5), device=dev), D, D, 1)
+
+
+def _vanka_pattern(nc, k, g, dev, up=False):
+    """A random matrix with the Vanka down (q x n) or up (n x q) band: row
+    c(k+1)+a of the down matrix reads dofs ck..ck+k."""
+    n, q = nc * k + 1, nc * (k + 1)
+    m = torch.zeros((q, n), device=dev)
+    for c in range(nc):
+        m[c * (k + 1):(c + 1) * (k + 1), c * k:c * k + k + 1] = torch.randn(
+            (k + 1, k + 1), generator=g, device=dev)
+    return m.T.contiguous() if up else m
+
+
+# (nb, cells per axis, k) of the Vanka levels: heat fine 96 x 65^3 <->
+# 80^3, wave fine 48 x 33^3 <-> 40^3, a coarse 3^3 level (Q2, one cell)
+_LEVELS = [(96, 16, 4), (48, 8, 4), (12, 1, 2)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("nb,nc,k", _LEVELS)
+def test_grid_chain_kernel_vanka_levels(dev, nb, nc, k, dtype, tol):
+    g = torch.Generator(device=dev).manual_seed(nb + nc)
+    dn = [_vanka_pattern(nc, k, g, dev).to(dtype) for _ in range(3)]
+    upm = [_vanka_pattern(nc, k, g, dev, up=True).to(dtype)
+           for _ in range(3)]
+    n = nc * k + 1
+    x = torch.randn((nb, n, n, n), generator=g, device=dev).to(dtype)
+    before = (chain_down.launches, chain_up.launches)
+    w = chain_down(x, dn)
+    y = chain_up(w, upm)
+    torch.cuda.synchronize()
+    assert (chain_down.launches, chain_up.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert w.shape == (nb,) + (nc * (k + 1),) * 3 and w.dtype == dtype
+    assert y.shape == x.shape and y.dtype == dtype
+    assert _rel(w, chain_down_reference(x, dn)) <= tol
+    assert _rel(y, chain_up_reference(w, upm)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("shape,outs", [((5, 9, 13, 11), (7, 11, 13)),
+                                        ((4, 9, 7), (11, 5)),
+                                        ((2, 17, 17), (20, 20))])
+def test_grid_chain_kernel_dense(dev, shape, outs, dtype, tol):
+    """Dense matrices, odd shapes, dims 3 and 2, and f32 output from bf16
+    data (the sums rounded once)."""
+    g = torch.Generator(device=dev).manual_seed(sum(outs))
+    x = torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+    mats = [torch.randn((q, n), generator=g, device=dev,
+                        dtype=torch.float64)
+            for q, n in zip(outs, shape[1:])]
+    x, mats = x.to(dtype), [m.to(dtype) for m in mats]
+    got = chain_down(x, mats)
+    assert _rel(got, chain_down_reference(x, mats)) <= tol
+    back = chain_up(got, [m.T.contiguous() for m in mats])
+    assert back.shape == x.shape
+    if dtype == torch.bfloat16:
+        wide = chain_down(x, mats, torch.float32)
+        assert wide.dtype == torch.float32
+        assert _rel(wide, chain_down_reference(x, mats, torch.float32)) \
+            <= 1e-5
+
+
+def test_grid_chain_kernel_rejects(dev):
+    x = torch.zeros((2, 5, 5, 5), device=dev, dtype=torch.float64)
+    bf = [torch.zeros((6, 5), device=dev, dtype=torch.bfloat16)] * 3
+    with pytest.raises(ValueError):          # f64 data, bf16 matrices
+        chain_down(x, bf)
+    with pytest.raises(ValueError):          # matrix/x shape mismatch
+        chain_down(x.float(), [torch.zeros((6, 4), device=dev)] * 3)
+    big = torch.zeros((1, 200, 200, 200), device=dev)
+    with pytest.raises(RuntimeError):        # plane beyond shared memory
+        chain_down(big, [torch.zeros((240, 200), device=dev)] * 3)
