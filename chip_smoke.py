@@ -11,13 +11,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      shape (S=32, nt=3, N=512,000), bf16 and f32, with both times;
   4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
      B=128 in float64, with both times;
+  4b. K3 parity: banded_apply kernel vs its plain torch version along each
+     of the three axes at B=128 x 65^3, k=4 (the heat factors) and at the
+     Stokes shape 3 x 17^3, k=2 (the Stokes velocity factors), float64,
+     with both times and the time of one dense matmul with the assembled
+     1D matrix (the library yardstick);
   5. K4 parity: the grid chain (chain_down, then chain_up) vs its plain
      torch version with Vanka-banded matrices at the heat fine level
      (96 x 65^3 <-> 80^3) and the wave fine level (48 x 33^3 <-> 40^3),
      bf16 and f32, with both times;
   6. small-input checks: the heat and the wave solve at 4^3 cells,
      ntao=4 on the GPU against the same solve on the CPU (plain torch
-     kernels) and against the exact solution;
+     kernels) and against the exact solution; the Stokes solve at 4^3
+     cells, ntao=4 on the GPU against the CPU (relative 1e-6, V-cycles
+     within 1, TRUE <= 1e-8 on both);
   7. heat main path: bench_heat at its defaults (16^3 cells, 32 steps per
      slab) for the probe plus 2 timed slabs and one profiled, untimed
      slab; every slab must reach a TRUE relative residual <= 1e-8, and
@@ -26,7 +33,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      slab) for the probe plus 2 timed slabs and one profiled, untimed
      slab; every slab must reach TRUE <= 1e-8, the probe's recovered v
      must agree with the dense FP64 oracle to < 1e-9, and K2 and K4 (both
-     chains) must each launch in this run.
+     chains) must each launch in this run;
+  9. Stokes main path: bench_stokes at its defaults (8^3 cells, 8 steps
+     per slab) for the two probe slabs plus 2 timed slabs and one
+     profiled, untimed slab; every slab must reach TRUE <= 1e-8 and K2 and
+     K3 must each launch in this run.  K3 (the rhs coupling's M x) must
+     launch on the heat and wave paths too.
 Then it prints the nvidia-smi line, a JSON line describing the kernels,
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the stfem_tpu_torch package beside it, it exits non-zero and
@@ -36,6 +48,9 @@ import json
 import os
 import subprocess
 import sys
+import time
+
+import numpy as np
 
 
 def _smi_line() -> str:
@@ -62,6 +77,24 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+# NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; FP32 67 TFLOP/s and FP64
+# 34 TFLOP/s outside the tensor cores
+HBM_BPS, PEAK_FLOPS = 3.35e12, {"f32": 67e12, "f64": 34e12}
+
+
+def _bound(n_bytes: float, flops: float, kind: str):
+    """(bound_ms, bound_by): the least time for this work on the card --
+    the larger of the bytes over the memory rate and the operations over
+    the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, flops / PEAK_FLOPS[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def _vanka_band(nc: int, k: int, gen, dev):
     """A random (nc(k+1), nc k + 1) matrix with the Vanka down band: row
     c(k+1)+a reads dofs ck..ck+k (stmg/vanka.py)."""
@@ -80,9 +113,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from stfem_tpu_torch import bench_heat, bench_wave
+        from stfem_tpu_torch import bench_heat, bench_stokes, bench_wave
         from stfem_tpu_torch.mesh.grid import StructuredMesh
         from stfem_tpu_torch.ops import cuda_kernels
+        from stfem_tpu_torch.ops.banded_apply import (banded_apply,
+                                                      banded_apply_reference)
         from stfem_tpu_torch.ops.grid_chain import (chain_down,
                                                     chain_down_reference,
                                                     chain_up,
@@ -91,6 +126,8 @@ def main() -> int:
                                                    kron_pair_reference)
         from stfem_tpu_torch.ops.kronfac import KronAssembled
         from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
+        from stfem_tpu_torch.ops.stokes import StokesOperator
+        from stfem_tpu_torch.ops.stokes_residual import KronStokes64
         from stfem_tpu_torch.ops.time_solve import (time_solve,
                                                     time_solve_reference)
         from stfem_tpu_torch.problems import heat
@@ -100,6 +137,11 @@ def main() -> int:
         return 3
     dev = torch.device("cuda")
     smi = _smi_line()
+    t_start = time.time()
+
+    def phase_done(name: str) -> None:
+        print(f"#   ({name} done at {time.time() - t_start:.1f} s)",
+              flush=True)
 
     # 1. device
     print(f"# device: {smi} | torch {torch.__version__} cuda "
@@ -135,7 +177,11 @@ def main() -> int:
         if not err <= tol * scale:
             raise AssertionError("K1 disagrees with its plain version")
         if dt == torch.bfloat16:      # the bench's level dtype
-            report["time_solve"] = (err, ms, plain)
+            # read w, the factors and write y once; 2 nt (nt + 1) flops per
+            # position and step, in float32
+            bound = _bound(_nbytes(w, G, c) + _nbytes(got.to(dt)),
+                           2.0 * nt * (nt + 1) * S * N, "f32")
+            report["time_solve"] = (err, ms, plain, None) + bound
 
     # 4. K2 parity at the bench shape, with the bench's 1D factors
     mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=3)
@@ -160,9 +206,54 @@ def main() -> int:
           f"{plain:.3f} ms", flush=True)
     if not rel <= 1e-14:
         raise AssertionError("K2 disagrees with its plain version")
-    report["kron_pair"] = (err, ms, plain)
-    del x, kron
+    # read x, write K x and M x once; per element 2(2k+1) flops for each
+    # of the first axis' two tap sets and of each later axis' three
+    k = kron.k
+    report["kron_pair"] = (err, ms, plain, None) + _bound(
+        3 * _nbytes(x), x.numel() * 16.0 * (2 * k + 1), "f64")
+    phase_done("K1, K2")
+
+    # 4b. K3 parity along every axis, at the large shape (the heat factors)
+    #     and at the Stokes rhs shape (the Stokes velocity factors)
+    m8 = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=2)
+    st_kron = KronStokes64(StokesOperator(m8, 2, 1, 3, dtype=torch.float64,
+                                          device=dev)).base
+    xs = torch.randn((3,) + m8.dof_shape(2), generator=gen, device=dev,
+                     dtype=torch.float64)
+    for label, xk, kr in (("B=128 x 65^3 k=4", x, kron),
+                          ("Stokes 3 x 17^3 k=2", xs, st_kron)):
+        errs, rels, mss, plains, libs = [], [], [], [], []
+        for d, axis in enumerate((-3, -2, -1)):
+            D, A = kr.Md[d], kr.M1[d]
+            got = banded_apply(xk, D, axis, kr.k)
+            ref = banded_apply_reference(xk, D, axis, kr.k)
+            errs.append(float((got - ref).abs().max()))
+            rels.append(errs[-1] / float(ref.abs().max()))
+            del got, ref
+            mss.append(_cuda_ms(lambda: banded_apply(xk, D, axis, kr.k), 20))
+            plains.append(_cuda_ms(
+                lambda: banded_apply_reference(xk, D, axis, kr.k), 3))
+            lib = {-3: lambda: A @ xk.reshape(xk.shape[0], xk.shape[1], -1),
+                   -2: lambda: A @ xk,
+                   -1: lambda: xk @ A.T}[axis]
+            libs.append(_cuda_ms(lib, 5))
+        bound = _bound(2 * _nbytes(xk), xk.numel() * 2.0 * (2 * kr.k + 1),
+                       "f64")
+        print(f"# K3 banded_apply f64 {label}, axes (-3, -2, -1): "
+              f"max_abs_err {max(errs):.3e} (rel to max {max(rels):.3e}, "
+              f"tol 1e-14) kernel {[round(t, 4) for t in mss]} ms plain "
+              f"{[round(t, 4) for t in plains]} ms dense matmul "
+              f"{[round(t, 4) for t in libs]} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})", flush=True)
+        if not max(rels) <= 1e-14:
+            raise AssertionError("K3 disagrees with its plain version")
+        if label.startswith("B=128"):
+            report["banded_apply"] = (max(errs), float(np.mean(mss)),
+                                      float(np.mean(plains)),
+                                      float(np.mean(libs))) + bound
+    del x, xs, kron, st_kron
     torch.cuda.empty_cache()
+    phase_done("K3")
 
     # 5. K4 parity at the Vanka fine levels of both main paths: the down
     #    chain, then the up chain on its output
@@ -195,9 +286,17 @@ def main() -> int:
             if not rel <= tol:
                 raise AssertionError("K4 disagrees with its plain version")
             if dt == torch.bfloat16 and label == "heat":
-                report["grid_chain"] = (err, ms, plain)
+                # down: read x, write w; up: read w, write y; per output
+                # element k+1 banded taps on each of the three axes
+                nq = nc * (k + 1)
+                flops = 2.0 * (k + 1) * nb * (
+                    nq * n * n + nq * nq * n + nq ** 3) * 2
+                report["grid_chain"] = (err, ms, plain, None) + _bound(
+                    2 * _nbytes(w) + _nbytes(x, y), flops, "f32")
             del x, w, y
     torch.cuda.empty_cache()
+
+    phase_done("K4")
 
     # 6. small inputs: GPU kernels vs the CPU plain path, and vs the exact
     #    solution at the end of the last slab
@@ -226,34 +325,65 @@ def main() -> int:
                 and all(abs(a - b) <= 1
                         for a, b in zip(ig["iters"], ic["iters"]))):
             raise AssertionError(f"small-input {label} check failed")
+    small = {}
+    for where in ("cuda", "cpu"):
+        info, xl = bench_stokes.run(4, 4, n_slabs=3, device=where)
+        small[where] = (info, xl.cpu())
+    (ig, xg), (ic, xc) = small["cuda"], small["cpu"]
+    diff = float((xg - xc).norm() / xc.norm())
+    print(f"# small stokes 4^3 ntao=4: V-cycles/slab gpu {ig['iters']} cpu "
+          f"{ic['iters']}, TRUE rel gpu {ig['true_rels']} cpu "
+          f"{ic['true_rels']}, |x_gpu - x_cpu|/|x_cpu| {diff:.2e} "
+          f"(tol 1e-6)", flush=True)
+    if not (ig["converged"] and ic["converged"] and diff <= 1e-6
+            and all(r <= 1e-8 for r in ig["true_rels"] + ic["true_rels"])
+            and all(abs(a - b) <= 1
+                    for a, b in zip(ig["iters"], ic["iters"]))):
+        raise AssertionError("small-input stokes check failed")
+    phase_done("small inputs")
 
     # 7-8. the main paths at the bench defaults, each with the launch
     #      counts set to 0 just before it and read just after
     wrappers = {"time_solve": time_solve, "kron_pair": kron_pair,
-                "chain_down": chain_down, "chain_up": chain_up}
-    path_kernels = {"heat": ("time_solve", "kron_pair", "chain_down",
+                "banded_apply": banded_apply, "chain_down": chain_down,
+                "chain_up": chain_up}
+    path_kernels = {"heat": ("time_solve", "kron_pair", "banded_apply",
+                             "chain_down", "chain_up"),
+                    "wave": ("kron_pair", "banded_apply", "chain_down",
                              "chain_up"),
-                    "wave": ("kron_pair", "chain_down", "chain_up")}
+                    "stokes": ("kron_pair", "banded_apply")}
     launches = dict.fromkeys(wrappers, 0)
     for label, bench, args in (("heat", bench_heat, (16, 32)),
-                               ("wave", bench_wave, (8, 16))):
+                               ("wave", bench_wave, (8, 16)),
+                               ("stokes", bench_stokes, (8, 8))):
         for w in wrappers.values():
             w.launches = 0
+        wall0, cpu0 = time.time(), time.process_time()
         info, _ = bench.run(*args, n_slabs=2, device="cuda", profile=True)
         counts = {name: w.launches for name, w in wrappers.items()}
+        wall, cpu = time.time() - wall0, time.process_time() - cpu0
         prof = info.pop("profile")
         print(json.dumps(info), flush=True)
         print(f"# {label}: profile of one more slab (untimed): device busy "
               f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s "
               f"wall (share {prof['device_busy_share']:.4f}), "
-              f"{prof['n_kernel_launches']} launches; top ops (ms) "
-              f"{prof['top_ops_ms'][:6]}", flush=True)
+              f"{prof['n_kernel_launches']} launches, trace stop "
+              f"{prof['exit_s']:.2f} s, summary {prof['summary_s']:.2f} s; "
+              f"top ops (ms) {prof['top_ops_ms'][:6]}", flush=True)
+        # the host-bound paths' speed varies between machines: the phase's
+        # wall against this process's CPU time (all threads), and each
+        # timed slab's wall against its dispatch thread's CPU time
+        print(f"# {label} phase: wall {wall:.1f} s, this process's CPU "
+              f"time {cpu:.1f} s, probe {info['probe_s']:.1f} s; timed "
+              f"slabs {[round(t, 3) for t in info['slab_s']]} s wall, "
+              f"{[round(t, 3) for t in info['slab_host_cpu_s']]} s of "
+              f"dispatch-thread CPU", flush=True)
         print(json.dumps(bench.metric_line(info)), flush=True)
         print(f"# {label} {args[0]}^3 ntao={args[1]}: V-cycles/slab "
               f"{info['iters']}, TRUE rel {info['true_rels']}, probe floor "
               f"{info['probe_floor']:.3e}, setup {info['setup_s']:.1f} s, "
-              f"{info['dofs_per_s']:.4e} space-time DoF/s, launches "
-              f"{counts}", flush=True)
+              f"slab {info['slab_s']} s, {info['dofs_per_s']:.4e} "
+              f"space-time DoF/s, launches {counts}", flush=True)
         if not (info["converged"]
                 and all(r <= 1e-8 for r in info["true_rels"])):
             raise AssertionError(f"{label} slab solve did not reach TRUE "
@@ -263,19 +393,25 @@ def main() -> int:
             raise AssertionError(f"{label}: kernels never ran: {missing}")
         for name, c in counts.items():
             launches[name] += c
+        phase_done(f"{label} main path")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),
                "kron_pair": ("stfem_tpu_torch/csrc/kron_pair.cu",
                              "stfem_tpu/ops/pallas_ffresid.py:120"),
+               "banded_apply": ("stfem_tpu_torch/csrc/banded_apply.cu",
+                                "stfem_tpu/ops/pallas_ffband.py:92"),
                "grid_chain": ("stfem_tpu_torch/csrc/grid_chain.cu",
                               "stfem_tpu/ops/pallas_grid.py:158")}
     launches["grid_chain"] = launches["chain_down"] + launches["chain_up"]
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": report[name][0], "ms": report[name][1],
-                "plain_ms": report[name][2]}
-               for name, (src, rep) in sources.items()]
+    kernels = []
+    for name, (src, rep) in sources.items():
+        err, ms, plain, lib, bound_ms, bound_by = report[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

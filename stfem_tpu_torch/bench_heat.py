@@ -7,9 +7,9 @@ space-time DoFs per slab).  Every slab is solved to a TRUE relative
 residual <= 1e-8 by
   1. a float32 preconditioned-Richardson first solve with the bf16 STMG
      V-cycle, stopped just above the float32 floor (rtol1);
-  2. one iterative-refinement pass: the FP64 slab residual (kernel K2),
-     a float32 Richardson correction solve of the unit-scaled residual to
-     ir_rtol, and the FP64 update;
+  2. one iterative-refinement pass: the FP64 slab residual (kernels K2
+     and K3), a float32 Richardson correction solve of the unit-scaled
+     residual to ir_rtol, and the FP64 update;
   3. an untimed FP64 TRUE-residual check, which gates `converged`.
 The floor and both tolerances come from a probe solve of slab 0 (run to
 stall): rtol1 = 1.4 floor, ir_rtol = 0.5e-8 / floor (bench.py:16-21).  If
@@ -34,6 +34,7 @@ import torch
 from .integrators import ForceAssembler
 from .krylov import fgmres, richardson_solve
 from .mesh.grid import StructuredMesh
+from .ops.kronfac import KronAssembled
 from .ops.slab_residual import SlabResidual64
 from .ops.spatial import LaplaceMassOperator
 from .problems import heat as heat_problem
@@ -86,7 +87,8 @@ def run(cells: int = 16, ntao: int = 32, n_slabs: int = 10,
     print(f"# setup/hierarchy {time.time() - t_setup:.1f}s", flush=True)
     force = ForceAssembler(mesh, SPACE_DEGREE, SPACE_DEGREE + 1, rhs_fn,
                            K.mask_np, dtype=f32, device=device)
-    resid = SlabResidual64(*ops[f64], Alpha, Beta, Gamma)
+    resid = SlabResidual64(KronAssembled(*ops[f64], f64), K.mask_np, Alpha,
+                           Beta, Gamma)
     force64 = ForceAssembler(mesh, SPACE_DEGREE, SPACE_DEGREE + 1, rhs_fn,
                              K.mask_np, dtype=f64, device=device)
     _sync(device)
@@ -156,13 +158,14 @@ def run(cells: int = 16, ntao: int = 32, n_slabs: int = 10,
         return x64, res.iterations + corr.iterations, res.converged
 
     prev32, prev64, t = prev32_0, prev64_0, np.float32(0.0)
-    iters, rels, times, conv = [], [], [], True
+    iters, rels, times, conv, cpu = [], [], [], True, []
     for i in range(n_slabs):
         _sync(device)
-        t0 = time.time()
+        t0, c0 = time.time(), time.thread_time()
         x64, its, ok = solve_slab(i, prev32, prev64, t)
         _sync(device)
         times.append(time.time() - t0)
+        cpu.append(time.thread_time() - c0)
         # untimed TRUE residual check (gates `converged`)
         _, rn2, bn2 = resid.residual(prev64, x64, f64slabs[i])
         rels.append(float(rn2) / float(bn2))
@@ -186,7 +189,8 @@ def run(cells: int = 16, ntao: int = 32, n_slabs: int = 10,
         true_rel_residual=max(rels), true_rels=rels,
         converged=bool(conv and all(r <= 1e-8 for r in rels)),
         setup_s=setup_s, probe_s=probe_s, solve_s=solve_s,
-        slab_s=times, probe_floor=probe_floor, rtol1=rtol1,
+        slab_s=times,
+        slab_host_cpu_s=cpu, probe_floor=probe_floor, rtol1=rtol1,
         ir_rtol=ir_rtol, dofs_per_s=dofs_per_s)
     if prof is not None:
         info["profile"] = prof
@@ -194,9 +198,14 @@ def run(cells: int = 16, ntao: int = 32, n_slabs: int = 10,
 
 
 def profile_slab(fn, device, top: int = 12) -> dict:
-    """Run fn() once under torch.profiler: wall time, summed device kernel
-    time (one stream, so kernels do not overlap), the kernels with the most
-    device time and the torch ops whose kernels take the most."""
+    """Run fn() once under torch.profiler: wall time, summed device time
+    (one stream, so kernels do not overlap), the kernels with the most
+    device time and the torch ops whose kernels take the most.
+
+    The summary reads the trace's raw events and joins each kernel to the
+    op that launched it by correlation id.  torch's key_averages() builds
+    an event tree first, which takes minutes for a slab of ~180k launches.
+    exit_s times the trace's stop, summary_s this summary."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,24 +218,38 @@ def profile_slab(fn, device, top: int = 12) -> dict:
         fn()
         _sync(device)
         wall = time.time() - t0
+    exit_s = time.time() - t0 - wall
+    t1 = time.time()
+    op_of, ops, kernels = {}, {}, {}
+    device_events = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            device_events.append(e)
+        elif e.linked_correlation_id() == 0:     # a torch op
+            op_of[e.correlation_id()] = e.name()
+            ops.setdefault(e.name(), [0, 0.0])[0] += 1
+    busy_us = 0.0
+    for e in device_events:
+        us = e.duration_ns() * 1e-3
+        busy_us += us
+        k = kernels.setdefault(e.name(), [0, 0.0])
+        k[0] += 1
+        k[1] += us
+        op = op_of.get(e.linked_correlation_id())
+        if op is not None:
+            ops[op][1] += us
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
+    def rows(table):
+        ranked = sorted(table.items(), key=lambda kv: (kv[1][1], kv[1][0]),
+                        reverse=True)[:top]
+        return [[name[:70], n, us * 1e-3] for name, (n, us) in ranked]
 
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    ops = [e for e in events if e.device_type != DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in kernels) * 1e-6
-
-    def rows(evs):
-        return [[e.key[:70], e.count, dev_us(e) * 1e-3]
-                for e in sorted(evs, key=dev_us, reverse=True)[:top]]
-
+    busy = busy_us * 1e-6
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall if wall > 0 else 0.0,
-            "n_kernel_launches": sum(e.count for e in kernels),
-            "top_kernels_ms": rows(kernels), "top_ops_ms": rows(ops)}
+            "n_kernel_launches": len(device_events),
+            "top_kernels_ms": rows(kernels), "top_ops_ms": rows(ops),
+            "exit_s": exit_s, "summary_s": time.time() - t1}
 
 
 def metric_line(info: dict) -> dict:

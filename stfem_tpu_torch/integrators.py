@@ -23,7 +23,7 @@ class ForceAssembler:
     pts[..., 0]."""
 
     def __init__(self, mesh: StructuredMesh, degree: int, n_q: int,
-                 rhs_fn: Callable, mask, dtype=torch.float64, device="cpu"):
+                 rhs_fn: Callable, mask, dtype=torch.float64, device="cuda"):
         self.mesh = mesh
         self.degree = degree
         self.dim = mesh.dim
@@ -66,7 +66,7 @@ class WaveVelocityRecovery:
     feeds the next slab's rhs and replaces stfem_tpu's float-float pair."""
 
     def __init__(self, Alpha_1, Beta_1, Gamma_1, n_steps: int,
-                 device="cpu"):
+                 device="cuda"):
         A1 = np.asarray(Alpha_1, np.float64)
         Ainv = np.linalg.inv(A1)
         AixB = Ainv @ np.asarray(Beta_1, np.float64)

@@ -17,7 +17,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("time_solve.cu", "kron_pair.cu", "grid_chain.cu")
+SOURCES = ("time_solve.cu", "kron_pair.cu", "banded_apply.cu",
+           "grid_chain.cu")
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "kernels"
             / "libstfem_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -83,6 +84,8 @@ def library() -> ctypes.CDLL:
     lib.stfem_kron_pair.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32,
                                     i32, i32, i32, i32, vp]
     lib.stfem_kron_pair.restype = i32
+    lib.stfem_banded_apply.argtypes = [vp, vp, vp, i64, i32, i64, i32, vp]
+    lib.stfem_banded_apply.restype = i32
     lib.stfem_grid_chain.argtypes = ([vp] * 6 + [i64] + [i32] * 9 + [vp])
     lib.stfem_grid_chain.restype = i32
     _LIB = lib

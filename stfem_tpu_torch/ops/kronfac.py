@@ -10,15 +10,19 @@ from the same 1D quadrature as the volume operator.  One (Kx, Mx) pair
 costs 3*dim-1 per-axis applies with a shared mass prefix.
 
 The float32/bfloat16 pair uses the dense per-axis matmuls; the float64
-pair (the IR residual) uses the banded diagonal form through kernel K2
-(ops/kron_pair.py).  The 1D factors are unconstrained: Dirichlet masking
-stays external (y = mask * A (mask * x)).
+pair (the IR residual) uses the banded diagonal form: both outputs of a 3D
+grid through kernel K2 (ops/kron_pair.py), any single output (the rhs
+couplings ask for M x alone) as a chain of single-axis applies through
+kernel K3 (ops/banded_apply.py), the structure of stfem_tpu's
+KronPallas9._pair_pallas.  The 1D factors are unconstrained: Dirichlet
+masking stays external (y = mask * A (mask * x)).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .banded_apply import banded_apply
 from .gridsumfac import axis_apply
 from .kron_pair import kron_pair
 
@@ -56,9 +60,9 @@ def one_d_operators(mesh, d: int, k: int, n_q: int):
                            [float(verts[-1])], refinement=0)
     free = np.ones(int(mesh.cells[d]) * k + 1)
     M1 = LaplaceMassOperator(mesh1, k, n_q, 1.0, 0.0, dtype=torch.float64,
-                             mask=free)
+                             device="cpu", mask=free)
     A1 = LaplaceMassOperator(mesh1, k, n_q, 0.0, 1.0, dtype=torch.float64,
-                             mask=free)
+                             device="cpu", mask=free)
     return M1, A1
 
 
@@ -85,16 +89,22 @@ class KronAssembled:
         """x: [..., *dofshape] -> (K_glob x, M_glob x); a result that is not
         requested is None."""
         if self.dtype == torch.float64:
-            Kx, Mx = kron_pair(x.contiguous(), self.Md, self.Ad, self.k)
-            return (Kx if need_K else None), (Mx if need_M else None)
+            x = x.contiguous()
+            if need_K and need_M and self.dim == 3:
+                return kron_pair(x, self.Md, self.Ad, self.k)
+            apply = lambda D, v, ax: banded_apply(v, D, ax, self.k)
+            Mf, Af = self.Md, self.Ad
+        else:
+            apply = lambda D, v, ax: axis_apply(D, v, ax)
+            Mf, Af = self.M1, self.A1
         lead = x.ndim - self.dim
         val, ks = x, None
         for d in range(self.dim):
             ax = lead + d
             if need_K:
-                a_term = axis_apply(self.A1[d], val, ax)
+                a_term = apply(Af[d], val, ax)
                 ks = (a_term if ks is None
-                      else axis_apply(self.M1[d], ks, ax) + a_term)
+                      else apply(Mf[d], ks, ax) + a_term)
             if need_M or (need_K and d < self.dim - 1):
-                val = axis_apply(self.M1[d], val, ax)
+                val = apply(Mf[d], val, ax)
         return (ks if need_K else None), (val if need_M else None)

@@ -14,7 +14,12 @@ Built from the f64 operators and the full multi-step tables, it holds
     Gamma_v (mass path, previous v).
 residual() runs the whole slab at once: every step's input blocks go
 through ONE Kronecker pair (kernel K2, ops/kron_pair.py) over a batch of
-(n_coupling + nt) * n_steps blocks, then the per-step tables mix them.
+(n_coupling + nt) * n_steps blocks, then the per-step tables mix them; the
+rhs couplings ask for M x alone (kernel K3, ops/banded_apply.py).
+
+The Kronecker engine is injected with its constraint mask, as stfem_tpu's
+FFSlabResidual takes kron_ff/mask: the scalar KronAssembled of the f64
+operators (heat, wave) or the Stokes saddle engine (ops/stokes_residual.py).
 """
 from __future__ import annotations
 
@@ -23,7 +28,6 @@ import torch
 
 from ..system import SystemMatrix
 from ..utils.precision import full_precision
-from .kronfac import KronAssembled
 
 
 class SlabResidual64:
@@ -31,8 +35,11 @@ class SlabResidual64:
     rhs = [Gamma_K (x) K prev +] Gamma (x) M prev [+ Gamma_v (x) M prev_v]
     + force, all in float64."""
 
-    def __init__(self, K64, M64, Alpha, Beta, Gamma, Gamma_K=None,
+    def __init__(self, kron, mask, Alpha, Beta, Gamma, Gamma_K=None,
                  Gamma_v=None):
+        """kron: an f64 engine with pair(x, need_K, need_M) and .device;
+        mask: its constraint mask (numpy), broadcast against the engine's
+        dofs."""
         A_np = np.asarray(Alpha, np.float64)
         B_np = np.asarray(Beta, np.float64)
         struct = SystemMatrix._detect_step_structure(A_np, B_np)
@@ -42,7 +49,7 @@ class SlabResidual64:
         self.n_blocks = int(A_np.shape[0])
         self.full_coupling = bool(np.any(A1[:, :-1]) or np.any(B1[:, :-1]))
         self.n_coupling = self.nt if self.full_coupling else 1
-        dev = K64.device
+        dev = kron.device
         as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
         c = slice(nt - self.n_coupling, nt)
         self.A = as_t(np.concatenate([A1[:, c], A0], axis=1))
@@ -59,8 +66,8 @@ class SlabResidual64:
         self.G = first_step(Gamma)
         self.Gk = first_step(Gamma_K)
         self.Gv = first_step(Gamma_v)
-        self.kron = KronAssembled(K64, M64, torch.float64)
-        self.mask = as_t(K64.mask_np)
+        self.kron = kron
+        self.mask = as_t(mask)
 
     def rhs(self, prev: torch.Tensor, fslab: torch.Tensor,
             prev_v: torch.Tensor | None = None):

@@ -87,7 +87,7 @@ class LaplaceMassOperator:
 
     def __init__(self, mesh: StructuredMesh, degree: int, n_q: int,
                  mass_scaling: float, laplace_scaling: float,
-                 dtype=torch.float64, device="cpu",
+                 dtype=torch.float64, device="cuda",
                  mask: np.ndarray | None = None):
         self.mesh = mesh
         self.degree = degree

@@ -1,10 +1,10 @@
 """Space-time multigrid preconditioner (counterpart of
 stfem_tpu/stmg/gmg.py; the reference's GMG, stmg.h:1047-1419).
 
-One GMG object owns the heat or wave hierarchy: per-level slab operators
-(level dtype, bf16 with level_bf16), grid-mode Vanka smoothers, Relaxation/
-Identity smoother wiring with deterministic eigenvalue estimates,
-separable space transfers and dense time transfers.  The V-cycle is
+One GMG object owns the heat, wave or Stokes hierarchy: per-level slab
+operators (level dtype, bf16 with level_bf16), Vanka smoothers,
+Relaxation/Identity smoother wiring with deterministic eigenvalue
+estimates, space transfers and dense time transfers.  The V-cycle is
 bench.py's tuned heat one (bench.py:886-923):
 
   pre-smooth:   u = S(d), S = 2 Relaxation sweeps with the level's Vanka
@@ -15,13 +15,19 @@ bench.py's tuned heat one (bench.py:886-923):
   variable smoothing -- on level l each pre- and post-smoothing applies S
   2^(max_level - l) times (stfem_tpu's GMGParams default `variable`,
   gmg.py:228-265), where the heat bench applies it once.
+  The Stokes V-cycle is run_stokes_bench's (build_stmg_stokes below):
+  variable smoothing with S = 1 Relaxation sweep, Identity levels visited
+  (their smoother returns the defect: deal.II's Richardson steps,
+  skip_identity=False), and the coarse level solved by an assembled
+  pseudo-inverse with the coarse nullspace (per-block constant pressure)
+  projected out before and after.
 
 The wave hierarchy takes the Schur-reduced per-level tables
 (get_fe_time_weights_wave_sequence) and the wave bench's estimates: no
 proxy, deal.II's 20-step power method on every full level
-(eig_exact=False).  build_stmg_stokes, the Chebyshev smoother, the
-capped/asymmetric smoothing-step knobs, the Smoother/GMRES coarse solves
-and the estimate cache of stfem_tpu are not ported.
+(eig_exact=False).  The Chebyshev smoother, the capped/asymmetric
+smoothing-step knobs, the Smoother/GMRES coarse solves and the estimate
+cache of stfem_tpu are not ported.
 """
 from __future__ import annotations
 
@@ -81,18 +87,31 @@ class GMG:
     DIRECT_COARSE_MAX = 16384
 
     def __init__(self, levels, transfers, dtype, precondition_sequence,
-                 variable: bool = False):
+                 variable: bool = False, skip_identity: bool = True,
+                 coarse_null: torch.Tensor | None = None):
+        """variable: 2^(max_level - l) smoother applications on level l.
+        skip_identity: Identity levels contribute nothing (the heat and
+        wave benches); False visits them (stfem_tpu's GMGParams default).
+        coarse_null: the normalized nullspace vector of a singular coarse
+        system (enclosed-flow Stokes: the per-time-block constant
+        pressure).  Given, the coarse solve is the host FP64
+        pseudo-inverse with the nullspace projected out of its defect and
+        solution; None, it is the plain inverse."""
         self.levels = levels
         self.transfers = transfers
         self.dtype = dtype
         self.precondition_sequence = precondition_sequence
         self.max_level = len(levels) - 1
         self.variable = variable
-        self.coarse_Ainv = self._assemble_direct_coarse()
+        self.skip_identity = skip_identity
+        self.coarse_null = coarse_null
+        self.coarse_Ainv = self._assemble_direct_coarse(
+            coarse_null is not None)
 
-    def _assemble_direct_coarse(self):
-        """Dense float32 inverse of the coarsest slab operator, assembled
-        from all unit columns at once (unit diagonal on constrained dofs)."""
+    def _assemble_direct_coarse(self, pinv: bool):
+        """Dense float32 inverse (or FP64 pseudo-inverse stored in float32)
+        of the coarsest slab operator, assembled from all unit columns at
+        once (unit diagonal on constrained dofs)."""
         lvl = self.levels[0]
         n = lvl.n_blocks * int(np.prod(lvl.dof_shape))
         assert n <= self.DIRECT_COARSE_MAX, \
@@ -104,15 +123,37 @@ class GMG:
         A = cols.transpose(0, 1).reshape(n, n).T.to(torch.float32)
         zero_rows = (torch.amax(torch.abs(A), dim=1) == 0.0).to(
             torch.float32)
-        return torch.linalg.inv(A + torch.diag(zero_rows))
+        A = A + torch.diag(zero_rows)
+        if not pinv:
+            return torch.linalg.inv(A)
+        # a host numpy SVD in true FP64: float32 SVD noise (~1e-7 smax)
+        # sits above rcond and would keep the near-null directions
+        # (stfem_tpu/stmg/gmg.py:210-225)
+        A64 = A.cpu().numpy().astype(np.float64)
+        return torch.as_tensor(np.linalg.pinv(A64, rcond=1e-10),
+                               dtype=torch.float32, device=A.device)
+
+    def _project_null(self, x):
+        """Remove the coarse nullspace component per leading block."""
+        z = self.coarse_null.to(x.dtype)
+        flat = x.reshape(x.shape[0], -1)
+        return (flat - (flat @ z)[:, None] * z[None, :]).reshape(x.shape)
+
+    def _coarse_solve(self, defect):
+        if self.coarse_null is not None:
+            defect = self._project_null(defect)
+        d = defect.to(torch.float32).reshape(-1)
+        out = (self.coarse_Ainv @ d).reshape(defect.shape).to(self.dtype)
+        if self.coarse_null is not None:
+            out = self._project_null(out)
+        return out
 
     def _level_v_step(self, level: int, defect):
         if level == 0:
-            d = defect.to(torch.float32).reshape(-1)
-            return (self.coarse_Ainv @ d).reshape(defect.shape).to(
-                self.dtype)
+            return self._coarse_solve(defect)
         lvl = self.levels[level]
-        skip = isinstance(lvl.smoother, IdentitySmoother)
+        skip = self.skip_identity and isinstance(lvl.smoother,
+                                                 IdentitySmoother)
         steps = 2 ** (self.max_level - level) if self.variable else 1
         if skip:
             u = torch.zeros_like(defect)
@@ -158,7 +199,7 @@ def _two_step_tables(Alpha, Beta):
 def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                type_: TimeStepType, n_timesteps_at_once: int,
                time_step: float, params: GMGParams | None = None,
-               dtype=torch.float32, device="cpu",
+               dtype=torch.float32, device="cuda",
                problem: ProblemType = ProblemType.heat) -> GMG:
     """Assemble the STMG hierarchy for the heat or wave cycle with
     stfem_tpu's ladder conventions (space_and_time coarsening, p-multigrid,
@@ -265,7 +306,7 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
             info = estimate_eigenvalues(m_est, v_est, shape, mask,
                                         device=device, method=method)
             if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
-                omega = relaxation_parameters(info)
+                omega = relaxation_parameters(info, 1.0)
         lvl.smoother = RelaxationSmoother(matrix, v, omega, INNER_SWEEPS)
 
     transfers = []
@@ -292,5 +333,157 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
 
     gmg = GMG(levels, transfers, dtype, precond_seq,
               variable=problem == ProblemType.wave)
+    gmg.mg_type_level = mg_type_level
+    return gmg
+
+
+STOKES_SMOOTHING_RANGE = 5.0  # run_stokes_bench's (tf01stokes.json)
+
+
+def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
+                      type_: TimeStepType, n_timesteps_at_once: int,
+                      time_step: float, dtype=torch.float32,
+                      device="cuda") -> GMG:
+    """STMG hierarchy for the Stokes slab system on the flat
+    [T, n_u + n_p] layout (stfem_tpu/stmg/gmg.py::build_stmg_stokes with
+    run_stokes_bench's parameters, bench.py:143-156): velocity
+    Q_{fe_degree+1} x DGP(fe_degree) pressure per level, the space p-ladder
+    on the pressure degree, one tau level, block Vanka with the per-step
+    factorization, Relaxation (one sweep, omega from the 20-step power
+    estimate on the flat mask and smoothing range 5), variable smoothing,
+    Identity levels visited, and the assembled FP64 pseudo-inverse coarse
+    solve with the per-block constant pressure projected out.  Unit
+    viscosity; the time ladder stops at degree 1."""
+    from ..blocks import BlockSlice
+    from ..ops.stokes import StokesOperator
+    from ..system_stokes import StokesSystemMatrix
+    from ..time.tables import get_fe_time_weights_stokes
+    from .stokes_level import StokesSpaceTransfer, StokesVanka
+
+    device = torch.device(device)
+    fe_degree_min = max(fe_degree - 1, 1)
+    bisect = PolynomialCoarseningSequenceType.bisect
+    coarsening = CoarseningType.space_and_time
+    u_degree = fe_degree + 1
+    n_sp_lvl = mesh_fine.refinement + 1
+    meshes = [StructuredMesh(mesh_fine.subdivisions, mesh_fine.lower,
+                             mesh_fine.upper, refinement=r)
+              for r in range(n_sp_lvl)]
+    poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min, bisect)
+    # the space p-ladder coarsens the PRESSURE degree; velocity is always
+    # pressure + 1, so it never drops below Q2 (stfem_tpu gmg.py:766-782)
+    poly_space = [p + 1 for p in get_poly_mg_sequence(
+        u_degree - 1, fe_degree_min, bisect)]
+    mg_type_level = get_mg_sequence(
+        n_sp_lvl, poly_time, poly_space, n_timesteps_at_once,
+        max(n_timesteps_at_once // 2, 1), MGType.tau, coarsening, False,
+        True, False)
+    precond_seq = get_precondition_stmg_types(
+        mg_type_level, coarsening, False, False,
+        SupportedSmoothers.Relaxation)
+    fetw = get_fe_time_weights_sequence(
+        type_, time_step, n_timesteps_at_once, mg_type_level, poly_time)
+    fetw_stokes = get_fe_time_weights_sequence(
+        type_, time_step, n_timesteps_at_once, mg_type_level, poly_time,
+        weight_fn=get_fe_time_weights_stokes)
+
+    n_levels = len(mg_type_level) + 1
+    mesh_idx, spd_idx = [0] * n_levels, [0] * n_levels
+    n_at_once, ntd_idx = [0] * n_levels, [0] * n_levels
+    mi, si, na, ti = (n_sp_lvl - 1, len(poly_space) - 1,
+                      n_timesteps_at_once, len(poly_time) - 1)
+    for l in range(n_levels - 1, -1, -1):
+        mesh_idx[l], spd_idx[l], n_at_once[l], ntd_idx[l] = mi, si, na, ti
+        if l > 0:
+            mgt = mg_type_level[l - 1]
+            if mgt == MGType.h:
+                mi -= 1
+            elif mgt == MGType.p:
+                si -= 1
+            elif mgt == MGType.k:
+                ti -= 1
+            elif mgt == MGType.tau:
+                na //= 2
+    dg = type_ == TimeStepType.DG
+
+    levels, sops = [], {}
+    for l in range(n_levels):
+        mesh_l = meshes[mesh_idx[l]]
+        u_deg = poly_space[spd_idx[l]]
+        key = (mesh_idx[l], u_deg)
+        if key not in sops:
+            S = StokesOperator(mesh_l, u_deg, u_deg - 1, u_deg + 1, 1.0,
+                               dtype=dtype, device=device)
+            Mu = LaplaceMassOperator(mesh_l, u_deg, u_deg + 1, 1.0, 0.0,
+                                     dtype=dtype, device=device,
+                                     mask=S.mask_u_np)
+            sops[key] = (S, Mu)
+        S, Mu = sops[key]
+        matrix = StokesSystemMatrix(S, Mu, fetw[l][0], fetw[l][1],
+                                    type_=type_, precision=None)
+        rt = poly_time[ntd_idx[l]]
+        nt_l = rt + 1 if dg else rt
+        T_l = n_at_once[l] * nt_l
+        lvl = _Level(matrix=matrix, smoother=IdentitySmoother(),
+                     n_blocks=T_l, dof_shape=(S.n_u + S.n_p,))
+        levels.append(lvl)
+        # level 0 is solved directly: its smoother would never run
+        if l == 0 or precond_seq[l] == SupportedSmoothers.Identity:
+            continue
+        vanka = StokesVanka(S, Mu, fetw_stokes[l][0], fetw_stokes[l][1],
+                            BlockSlice(n_at_once[l], 2, nt_l), dtype=dtype)
+        omega = 1.0     # degenerate level: every velocity dof constrained
+        if np.sum(S.mask_u_np) != 0:
+            # Stokes keeps deal.II's power estimate (the saddle-point P A
+            # spectrum is complex; stfem_tpu gmg.py:858-869)
+            flat_mask = np.concatenate(
+                [np.tile(S.mask_u_np.reshape(-1), S.dim), np.ones(S.n_p)])
+            info = estimate_eigenvalues(matrix, vanka, (T_l, S.n_u + S.n_p),
+                                        flat_mask, device=device,
+                                        method="power")
+            if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
+                omega = relaxation_parameters(info,
+                                              STOKES_SMOOTHING_RANGE)
+        lvl.smoother = RelaxationSmoother(matrix, vanka, omega, 1)
+
+    transfers = []
+    for l in range(1, n_levels):
+        mgt = mg_type_level[l - 1]
+        deg_hi, deg_lo = poly_space[spd_idx[l]], poly_space[spd_idx[l - 1]]
+        S_hi = sops[(mesh_idx[l], deg_hi)][0]
+        S_lo = sops[(mesh_idx[l - 1], deg_lo)][0]
+        mesh_hi, mesh_lo = meshes[mesh_idx[l]], meshes[mesh_idx[l - 1]]
+        if mgt in (MGType.h, MGType.p):
+            if mgt == MGType.h:
+                P1ds = [h_prolongation_global_1d(mesh_lo.cells[d], deg_hi)
+                        for d in range(mesh_hi.dim)]
+            else:
+                P1ds = [p_prolongation_global_1d(mesh_hi.cells[d], deg_lo,
+                                                 deg_hi)
+                        for d in range(mesh_hi.dim)]
+            ut = SpaceTransfer(P1ds, S_hi.mask_u_np, S_lo.mask_u_np, dtype,
+                               device)
+            transfers.append(StokesSpaceTransfer(
+                S_hi, S_lo, ut, "h" if mgt == MGType.h else "p", dtype))
+        else:
+            rt_hi, rt_lo = poly_time[ntd_idx[l]], poly_time[ntd_idx[l - 1]]
+            # the dense time matrix acts on the whole flat [T, n_u + n_p]
+            # vector, as stfem_tpu's StokesTimeTransfer applies it
+            transfers.append(TimeTransfer(
+                type_, mgt, rt_hi + 1 if dg else rt_hi,
+                rt_lo + 1 if dg else rt_lo, n_at_once[l], dtype, device))
+
+    # the coarsest saddle system is singular (enclosed-flow constant
+    # pressure): the exact pseudo-inverse solves on range(A), and the
+    # per-block constant pressure is projected out of its defect and
+    # solution (stfem_tpu gmg.py:937-973)
+    S0 = sops[(mesh_idx[0], poly_space[spd_idx[0]])][0]
+    zp = np.zeros((int(np.prod(S0.cells)), S0.n_ploc_cell))
+    zp[:, 0] = 1.0           # DGP mode 0 = constant
+    z = np.concatenate([np.zeros(S0.n_u), zp.reshape(-1)])
+    coarse_null = torch.as_tensor(z / np.linalg.norm(z), dtype=dtype,
+                                  device=device)
+    gmg = GMG(levels, transfers, dtype, precond_seq, variable=True,
+              skip_identity=False, coarse_null=coarse_null)
     gmg.mg_type_level = mg_type_level
     return gmg

@@ -8,8 +8,9 @@ configured by the reference GMG, stmg.h:1199-1238).
   * method "arnoldi": converged lambda_max(P A) (ARPACK, tol 1e-5), no
     safety factor; "power": 20 power iterations on float32 probes,
     max = 1.2 * estimate
-  * relaxation omega = 2 / (alpha + max_eig), alpha = min(0.9 max_eig,
-    min_eig) (smoothing range 1, bench.py's)
+  * relaxation omega = 2 / (alpha + max_eig), alpha = max_eig / range if
+    the smoothing range is above 1 (the Stokes bench's 5), else
+    min(0.9 max_eig, min_eig) (the heat and wave benches' range 1)
 The Chebyshev smoother is not ported yet.
 """
 from __future__ import annotations
@@ -97,8 +98,9 @@ def estimate_eigenvalues(matrix, precond, shape_blocks, mask, device="cpu",
     return EigInfo(min_eigenvalue=est, max_eigenvalue=SAFETY_FACTOR * est)
 
 
-def relaxation_parameters(info: EigInfo) -> float:
-    alpha = min(0.9 * info.max_eigenvalue, info.min_eigenvalue)
+def relaxation_parameters(info: EigInfo, smoothing_range: float) -> float:
+    alpha = (info.max_eigenvalue / smoothing_range if smoothing_range > 1.0
+             else min(0.9 * info.max_eigenvalue, info.min_eigenvalue))
     return 2.0 / (alpha + info.max_eigenvalue)
 
 

@@ -1,0 +1,288 @@
+"""Stokes-specific STMG level components (counterpart of
+stfem_tpu/stmg/stokes_level.py): block Vanka over (u, p) cell patches and
+the flat-layout space transfer.
+
+Reference: the block PreconditionVanka (stmg.h:649-743) with M_mask =
+velocity-only, and MGTwoLevelBlockTransfer applied per variable
+(stmg.h:38-247); everything acts on the flat [T, n_u + n_p] Stokes
+vectors.  The time transfer needs no Stokes form: transfers.TimeTransfer
+mixes the leading time axis of the flat vector as it is.  Only the
+DGP-pressure, strong-Dirichlet case is ported (no Nitsche faces, obstacle
+or FE_Q pressure).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..blocks import BlockSlice
+from ..mesh.fe_dgp import dgp_child_embedding, dgp_p_embedding
+from ..ops.spatial import LaplaceMassOperator, cell_gather, cell_scatter
+from ..ops.stokes import StokesOperator
+from ..utils.assembly import band_indices, dof_valence
+from .transfers import SpaceTransfer
+
+
+def _band_flat(op: LaplaceMassOperator, flat_idx: torch.Tensor):
+    """Flattened banded assembled matrix band[*dofshape, (2k+1)^dim] =
+    A[g, g + offset], unit diagonal on constrained dofs
+    (stfem_tpu/stmg/vanka.py::_band_flat)."""
+    k, dim = op.degree, op.dim
+    E = op.element_matrices()        # (C, A, A), constrained rows/cols 0
+    n_off = (2 * k + 1) ** dim
+    band = torch.zeros(int(np.prod(op.dof_shape)) * n_off, dtype=op.dtype,
+                       device=op.device)
+    band.index_add_(0, flat_idx.reshape(-1), E.reshape(-1))
+    band = band.reshape(op.dof_shape + (n_off,))
+    band[..., (n_off - 1) // 2] += 1.0 - op.mask
+    return band.reshape(-1)
+
+
+class StokesVanka:
+    """Cell-patch Vanka for the space-time Stokes slab.
+
+    Patch rows ordered by block index (variable-major BlockSlice: timestep,
+    [u, p], timedof) with per-block spatial dofs = all cell u-dofs
+    (component-major) or all cell p-modes.  B = Alpha_st (x) K_blocks +
+    Beta_st (x) M_uu, valence-row-scaled, inverted batched at setup.
+
+    When the slab tables are block-bidiagonal with identical per-step
+    blocks (the DG/CGP multi-step assembly, fe_time.h:381-402) the patch
+    solve factorizes into per-step inverses Binv [C, P1, P1] and the
+    sequential recurrence y_s = Binv r_s - Kappa y_{s-1},
+    Kappa = Binv Bcoup; otherwise one dense inverse per patch.  The patch
+    gather and scatter are one precomputed index gather each way."""
+
+    def __init__(self, stokes_op: StokesOperator,
+                 mass_op: LaplaceMassOperator, Alpha_st, Beta_st,
+                 blk: BlockSlice, dtype=None):
+        S = stokes_op
+        self.S, self.blk = S, blk
+        self.dtype = dtype = dtype or S.dtype
+        dev = S.device
+        dim, k, cells = S.dim, S.u_degree, S.cells
+        C = int(np.prod(cells))
+        A_s = (k + 1) ** dim
+        A_u = dim * A_s
+        n_pl = S.n_ploc_cell
+        n_blocks = blk.n_blocks
+        Alpha_st, Beta_st = np.asarray(Alpha_st), np.asarray(Beta_st)
+        self._A_s, self._n_pl = A_s, n_pl
+
+        lap = LaplaceMassOperator(S.mesh, k, S.n_q, 0.0, S.viscosity,
+                                  dtype=dtype, device=dev, mask=S.mask_u_np)
+        mass = LaplaceMassOperator(S.mesh, k, S.n_q, 1.0, 0.0, dtype=dtype,
+                                   device=dev, mask=S.mask_u_np)
+        fidx = torch.as_tensor(band_indices(cells, k), device=dev)
+
+        sizes = [A_u if blk.decompose(i)[1] == 0 else n_pl
+                 for i in range(n_blocks)]
+        offs = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+
+        # multi-step structure: identical diagonal step blocks, one-step
+        # coupling, nothing else
+        self.n_steps = 1
+        nb_step = blk.n_variables * blk.n_timedofs
+        n_steps = blk.n_timesteps_at_once
+        s0, s1 = slice(0, nb_step), slice(nb_step, 2 * nb_step)
+        if n_steps > 1 and n_blocks == n_steps * nb_step:
+            A0s, B0s = Alpha_st[s0, s0], Beta_st[s0, s0]
+            Acs, Bcs = Alpha_st[s1, s0], Beta_st[s1, s0]
+            ok = True
+            for s in range(n_steps):
+                ss = slice(s * nb_step, (s + 1) * nb_step)
+                ok &= np.array_equal(Alpha_st[ss, ss], A0s)
+                ok &= np.array_equal(Beta_st[ss, ss], B0s)
+                if s:
+                    sp = slice((s - 1) * nb_step, s * nb_step)
+                    ok &= np.array_equal(Alpha_st[ss, sp], Acs)
+                    ok &= np.array_equal(Beta_st[ss, sp], Bcs)
+                for t in range(n_steps):
+                    if abs(s - t) > 1 or t > s:
+                        tt = slice(t * nb_step, (t + 1) * nb_step)
+                        ok &= not (np.any(Alpha_st[ss, tt])
+                                   or np.any(Beta_st[ss, tt]))
+                if not ok:
+                    break
+            if ok:
+                self.n_steps = n_steps
+
+        Kuu_s = _band_flat(lap, fidx)[fidx]
+        Muu_s = _band_flat(mass, fidx)[fidx]
+        _, E_up, E_pu = S.element_matrices()
+        E_up, E_pu = E_up.to(dtype), E_pu.to(dtype)
+        # block-diagonal over the components, rows/cols component-major
+        eye_c = torch.eye(dim, dtype=dtype, device=dev)
+        Kuu, Muu = (torch.einsum("ce,xab->xcaeb", eye_c, E).reshape(
+            C, A_u, A_u) for E in (Kuu_s, Muu_s))
+
+        def assemble(A_tab, B_tab, nb):
+            """B_sub [C, P, P] over the first nb blocks (tables indexed
+            locally)."""
+            P = int(offs[nb])
+            Bm = torch.zeros((C, P, P), dtype=dtype, device=dev)
+            for i in range(nb):
+                iv = blk.decompose(i)[1]
+                for j in range(nb):
+                    jv = blk.decompose(j)[1]
+                    a, b = float(A_tab[i, j]), float(B_tab[i, j])
+                    if a == 0.0 and b == 0.0:
+                        continue
+                    if iv == 0 and jv == 0:
+                        sub = a * Kuu + b * Muu
+                    elif iv == 0 and jv == 1:
+                        sub = a * E_up
+                    elif iv == 1 and jv == 0:
+                        sub = a * E_pu
+                    else:
+                        continue              # p-p: no coupling
+                    Bm[:, offs[i]:offs[i + 1], offs[j]:offs[j + 1]] += sub
+            return Bm
+
+        # valence row scaling (u rows: spatial multiplicity; p rows: 1 for
+        # the cell-local DGP modes)
+        val = torch.as_tensor(dof_valence(cells, k), dtype=dtype, device=dev)
+        vl = cell_gather(val, cells, k).reshape(C, A_s)
+        vl_u = torch.cat([vl] * dim, dim=1)
+        vl_p = torch.ones((C, n_pl), dtype=dtype, device=dev)
+
+        def vrows(nb):
+            return torch.cat([vl_u if blk.decompose(i)[1] == 0 else vl_p
+                              for i in range(nb)], dim=1)[:, :, None]
+
+        def invert(B):
+            # regularize fully decoupled rows (degenerate coarse levels)
+            zero_rows = (torch.amax(torch.abs(B), dim=2) == 0.0).to(dtype)
+            return torch.linalg.inv(B + torch.diag_embed(zero_rows))
+
+        if self.n_steps > 1:
+            B1 = assemble(A0s, B0s, nb_step) * vrows(nb_step)
+            Bc = assemble(Acs, Bcs, nb_step) * vrows(nb_step)
+            self.Binv = invert(B1)
+            Kappa = self.Binv @ Bc
+            # rows regularized to identity in B1 keep no step coupling
+            zrows = torch.amax(torch.abs(B1), dim=2) == 0.0
+            self.Kappa = torch.where(zrows[:, :, None],
+                                     torch.zeros((), dtype=dtype,
+                                                 device=dev), Kappa)
+        else:
+            B = assemble(Alpha_st, Beta_st, n_blocks) * vrows(n_blocks)
+            self.Binv, self.Kappa = invert(B), None
+
+        # patch order <-> the per-cell [time position, (u comps, p)] layout
+        nt = blk.n_timedofs
+        W = A_u + n_pl
+        idx = []
+        for i in range(n_blocks):
+            it, iv, idof = blk.decompose(i)
+            base = (it * nt + idof) * W
+            idx.append(base + (np.arange(A_u) if iv == 0
+                               else A_u + np.arange(n_pl)))
+        gather = np.concatenate(idx)
+        T = n_steps * nt
+        assert np.array_equal(np.sort(gather), np.arange(T * W)), \
+            "the patch blocks must cover every (time position, variable)"
+        self._gather = torch.as_tensor(gather, device=dev)
+        self._scatter = torch.as_tensor(np.argsort(gather), device=dev)
+        self._W = W
+
+    def vmult(self, x: torch.Tensor) -> torch.Tensor:
+        """x: flat [T, n_u + n_p] residual -> additive patch updates."""
+        S = self.S
+        dim, k, cells = S.dim, S.u_degree, S.cells
+        C = self.Binv.shape[0]
+        A_s, n_pl, W = self._A_s, self._n_pl, self._W
+        u, p = S.unpack(x.to(self.dtype))
+        T = u.shape[0]
+        uc = cell_gather(u, cells, k).reshape(T, dim, C, A_s)
+        uc = uc.permute(2, 0, 1, 3).reshape(C, T, dim * A_s)
+        pc = p.reshape(T, C, n_pl).transpose(0, 1)
+        r = torch.cat([uc, pc], dim=2).reshape(C, T * W).index_select(
+            1, self._gather)
+        if self.n_steps > 1:
+            n_s = self.n_steps
+            y0 = torch.matmul(r.reshape(C, n_s, -1),
+                              self.Binv.transpose(1, 2))    # [C, S, P1]
+            ys = [y0[:, 0]]
+            for s in range(1, n_s):
+                ys.append(torch.baddbmm(y0[:, s, :, None], self.Kappa,
+                                        ys[-1][:, :, None], alpha=-1.0)[..., 0])
+            y = torch.stack(ys, dim=1).reshape(C, T * W)
+        else:
+            y = torch.bmm(self.Binv, r[:, :, None])[..., 0]
+        z = y.index_select(1, self._scatter).reshape(C, T, W)
+        du = z[..., :dim * A_s].reshape(C, T, dim, A_s).permute(1, 2, 0, 3)
+        du = cell_scatter(du.reshape((T, dim) + cells + (k + 1,) * dim),
+                          cells, k)
+        dp = z[..., dim * A_s:].transpose(0, 1).reshape((T,) + S.p_shape)
+        return S.pack(du, dp)
+
+
+class StokesSpaceTransfer:
+    """h- or p-transfer on the flat Stokes layout: separable 1D transfer on
+    each velocity component + exact DGP embedding for the pressure."""
+
+    def __init__(self, S_fine: StokesOperator, S_coarse: StokesOperator,
+                 u_transfer: SpaceTransfer, mg_type: str, dtype):
+        self.Sf, self.Sc = S_fine, S_coarse
+        self.u_transfer = u_transfer
+        self.mg_type = mg_type            # 'h' or 'p'
+        dim, dev = S_fine.dim, S_fine.device
+        if mg_type == "h":
+            assert S_fine.p_degree == S_coarse.p_degree
+            self.Ech = torch.as_tensor(dgp_child_embedding(
+                dim, S_fine.p_degree), dtype=dtype, device=dev)
+        else:
+            self.Pp = torch.as_tensor(dgp_p_embedding(
+                dim, S_coarse.p_degree, S_fine.p_degree), dtype=dtype,
+                device=dev)
+
+    def _children(self, x):
+        """[T, *fine cells, m] <-> [T, *coarse cells, 2, .., 2, m] views:
+        fine cell 2 c + b is child b of coarse cell c."""
+        dim = self.Sf.dim
+        T, m = x.shape[0], x.shape[-1]
+        shape = [T]
+        for c in self.Sc.cells:
+            shape += [c, 2]
+        x = x.reshape(shape + [m])
+        perm = ([0] + [1 + 2 * d for d in range(dim)]
+                + [2 + 2 * d for d in range(dim)] + [1 + 2 * dim])
+        return x.permute(perm)           # [T, *ccells, *bits, m]
+
+    def _bits(self):
+        """Ech as E[b_0, .., b_dim-1, f, m] and the einsum letters of the
+        child bits."""
+        dim = self.Sf.dim
+        return (self.Ech.reshape((2,) * dim + self.Ech.shape[1:]),
+                "abcdefg"[:dim])
+
+    def _p_prolongate(self, pc):
+        if self.mg_type == "p":
+            return torch.einsum("fm,...m->...f", self.Pp, pc)
+        dim = self.Sf.dim
+        E, b = self._bits()
+        vals = torch.einsum(f"{b}FM,T...M->T...{b}F", E, pc)
+        T, m = pc.shape[0], vals.shape[-1]
+        perm = [0]
+        for d in range(dim):
+            perm += [1 + d, 1 + dim + d]
+        perm.append(1 + 2 * dim)
+        return vals.permute(perm).reshape((T,) + self.Sf.cells + (m,))
+
+    def _p_restrict(self, pf):
+        if self.mg_type == "p":
+            return torch.einsum("fm,...f->...m", self.Pp, pf)
+        E, b = self._bits()
+        return torch.einsum(f"{b}FM,T...{b}F->T...M", E, self._children(pf))
+
+    def prolongate(self, xc: torch.Tensor) -> torch.Tensor:
+        uc, pc = self.Sc.unpack(xc)
+        return self.Sf.pack(self.u_transfer.prolongate(uc),
+                            self._p_prolongate(pc))
+
+    def restrict(self, xf: torch.Tensor) -> torch.Tensor:
+        uf, pf = self.Sf.unpack(xf)
+        return self.Sc.pack(self.u_transfer.restrict(uf),
+                            self._p_restrict(pf))
+

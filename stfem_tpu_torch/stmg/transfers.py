@@ -44,7 +44,7 @@ class SpaceTransfer:
     """Separable space transfer: per-axis 1D matrices + Dirichlet masks."""
 
     def __init__(self, P1d_per_axis, fine_mask, coarse_mask,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cuda"):
         as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                          device=device)
         self.P = [as_t(P) for P in P1d_per_axis]
@@ -72,7 +72,7 @@ class TimeTransfer:
 
     def __init__(self, type_: TimeStepType, mg_type: MGType,
                  nt_dofs_hi: int, nt_dofs_lo: int, n_timesteps_hi: int,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cuda"):
         if type_ == TimeStepType.DG:
             r_hi, r_lo = nt_dofs_hi - 1, nt_dofs_lo - 1
         else:

@@ -55,7 +55,7 @@ def separable_eigenbasis(K_op: LaplaceMassOperator,
         patches = []
         for ms, ls in ((0.0, 1.0), (1.0, 0.0)):
             op = LaplaceMassOperator(mesh1, k, K_op.n_q, ms, ls,
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device="cpu")
             # assembled 1D matrix, unit diagonal on constrained dofs
             patches.append(assemble_1d_dense(op) + np.diag(1.0 - mask1))
         Kd, Md = patches

@@ -2,7 +2,8 @@
 
 Dense (tiny) matrices defining the CGP(r) / DG(r) time discretizations and
 their multi-timestep block assembly and the Schur-reduced wave tables
-(stfem_tpu's Stokes and extrapolation tables are not ported yet).  All
+and the two-variable Stokes tables (stfem_tpu's extrapolation tables are
+not ported yet).  All
 NumPy float64, computed at setup time;
 parity oracle is the reference's golden file tests/tp_02.output
 (reference: include/fe_time.h:157-744, include/fe_time.cc).
@@ -237,8 +238,10 @@ def get_fe_time_weights_wave(type_: TimeStepType, Alpha: np.ndarray,
 def get_fe_time_weights_sequence(type_: TimeStepType, time_step_size: float,
                                  n_timesteps_at_once: int,
                                  mg_type_level: list[MGType],
-                                 poly_time_sequence: list[int]):
-    """Per-MG-level tables, finest last.
+                                 poly_time_sequence: list[int],
+                                 weight_fn=get_fe_time_weights):
+    """Per-MG-level tables, finest last (weight_fn: get_fe_time_weights,
+    or get_fe_time_weights_stokes for the saddle-point levels).
 
     Walking the type ladder from the finest level: a k-level steps to the next
     coarser time degree, a tau-level halves the steps-at-once and doubles tau
@@ -249,8 +252,7 @@ def get_fe_time_weights_sequence(type_: TimeStepType, time_step_size: float,
     p_it = len(poly_time_sequence) - 1
     n_at_once = n_timesteps_at_once
     tau = time_step_size
-    out[-1] = get_fe_time_weights(type_, poly_time_sequence[p_it], tau,
-                                  n_at_once)
+    out[-1] = weight_fn(type_, poly_time_sequence[p_it], tau, n_at_once)
     lvl = n_levels - 2
     for mgt in reversed(mg_type_level):
         if mgt == MGType.k:
@@ -258,8 +260,7 @@ def get_fe_time_weights_sequence(type_: TimeStepType, time_step_size: float,
         elif mgt == MGType.tau:
             n_at_once //= 2
             tau *= 2.0
-        out[lvl] = get_fe_time_weights(type_, poly_time_sequence[p_it], tau,
-                                       n_at_once)
+        out[lvl] = weight_fn(type_, poly_time_sequence[p_it], tau, n_at_once)
         lvl -= 1
     assert lvl == -1
     return out
@@ -282,3 +283,37 @@ def get_fe_time_weights_wave_sequence(type_: TimeStepType,
                                       poly_time_sequence)
     return [get_fe_time_weights_wave(type_, a, b, g, z)
             for (a, b, g, z) in fo]
+
+
+def get_fe_time_weights_stokes(type_: TimeStepType, r: int,
+                               time_step_size: float,
+                               n_timesteps_at_once: int = 1):
+    """Two-variable (velocity, pressure) saddle-point expansion.
+
+    Alpha couples all (u,p)x(u,p) pairs except p-p; the time derivative Beta
+    acts only on u-u; the RHS columns act on the u rows (plus the CGP Gamma on
+    the p rows) (reference include/fe_time.h:1242-1325).
+    """
+    from ..blocks import BlockSlice
+    a, b, g, z = get_fe_time_weights(type_, r, time_step_size,
+                                     n_timesteps_at_once)
+    n = a.shape[0]
+    blk = BlockSlice(n_timesteps_at_once, 2,
+                     r + 1 if type_ == TimeStepType.DG else r)
+    A = np.zeros((2 * n, 2 * n))
+    B = np.zeros((2 * n, 2 * n))
+    G = np.zeros((2 * n, 1))
+    Z = np.zeros((2 * n, 1))
+    for iv in range(2):
+        rows = blk.get_time(iv)
+        for jv in range(2):
+            cols = blk.get_time(jv)
+            if not (iv == 1 and jv == 1):
+                A[np.ix_(rows, cols)] = a
+        if iv == 0:
+            B[np.ix_(rows, rows)] = b
+            G[rows, 0] = g[:, 0]
+            Z[rows, 0] = z[:, 0]
+        if iv == 1 and type_ == TimeStepType.CGP:
+            G[rows, 0] = g[:, 0]
+    return A, B, G, Z

@@ -2,7 +2,8 @@
 
 The parity tests extract numpy arrays from the JAX package's objects
 (np.asarray on KronAssembled.M1/A1/Md/Ad, PreconditionVanka.Wdn/Wup/
-GinvT/cvecT, the GMG level omegas and coarse_Ainv) and load them here, so
+GinvT/cvecT, StokesVanka.Binv/Kappa, the GMG level omegas, coarse_Ainv
+and coarse_null) and load them here, so
 that a comparison starts from identical factors and isolates the apply.
 The time tables need no loader: both packages build them in NumPy, and
 the tests pass the same arrays to both constructors.  Arrays are cast to
@@ -49,9 +50,20 @@ def load_vanka(vanka, Wdn=None, Wup=None, GinvT=None, cvecT=None,
             setattr(vanka, name, _like(a, ref))
 
 
-def load_gmg(gmg, omegas=None, coarse_Ainv=None) -> None:
+def load_stokes_vanka(vanka, Binv=None, Kappa=None) -> None:
+    """StokesVanka patch factors (per-step or dense inverse, and the step
+    coupling of the per-step factorization)."""
+    for name, a in (("Binv", Binv), ("Kappa", Kappa)):
+        if a is not None:
+            ref = getattr(vanka, name)
+            assert ref is not None and tuple(np.shape(a)) == tuple(ref.shape)
+            setattr(vanka, name, _like(a, ref))
+
+
+def load_gmg(gmg, omegas=None, coarse_Ainv=None, coarse_null=None) -> None:
     """GMG level relaxation omegas (one per level, None for Identity
-    levels) and the Direct coarse inverse."""
+    levels and the directly solved level 0), the Direct coarse inverse or
+    pseudo-inverse, and the coarse nullspace vector."""
     if omegas is not None:
         assert len(omegas) == len(gmg.levels)
         for lvl, om in zip(gmg.levels, omegas):
@@ -59,3 +71,6 @@ def load_gmg(gmg, omegas=None, coarse_Ainv=None) -> None:
                 lvl.smoother.omega = float(om)
     if coarse_Ainv is not None:
         gmg.coarse_Ainv = _like(coarse_Ainv, gmg.coarse_Ainv)
+    if coarse_null is not None:
+        assert gmg.coarse_null is not None
+        gmg.coarse_null = _like(coarse_null, gmg.coarse_null)

@@ -37,8 +37,10 @@ def _ops(refinement, deg):
     f64 = jnp.float64
     jK = JOp(jm, deg, deg + 1, 0.0, 1.0, dtype=f64)
     jM = JOp(jm, deg, deg + 1, 1.0, 0.0, dtype=f64)
-    tK = LaplaceMassOperator(tm, deg, deg + 1, 0.0, 1.0, dtype=torch.float64)
-    tM = LaplaceMassOperator(tm, deg, deg + 1, 1.0, 0.0, dtype=torch.float64)
+    tK = LaplaceMassOperator(tm, deg, deg + 1, 0.0, 1.0, dtype=torch.float64,
+                             device="cpu")
+    tM = LaplaceMassOperator(tm, deg, deg + 1, 1.0, 0.0, dtype=torch.float64,
+                             device="cpu")
     return jK, jM, tK, tM
 
 
@@ -100,7 +102,8 @@ def _slab_case(refinement, deg, ntao, seed):
     rhs_ref = (np.asarray(jax.jit(r64.vmult)(jnp.asarray(prev)[None]))
                + fslab)
     r_ref = rhs_ref - np.asarray(jax.jit(full.vmult)(jnp.asarray(x)))
-    res = SlabResidual64(tK, tM, A, B, G)
+    res = SlabResidual64(KronAssembled(tK, tM, torch.float64), tK.mask_np,
+                         A, B, G)
     r, rn, bn = res.residual(torch.as_tensor(prev), torch.as_tensor(x),
                              torch.as_tensor(fslab))
     return (jK, jM, A, B, G, x, prev, fslab), rhs_ref, r_ref, (r, rn, bn)
@@ -142,7 +145,8 @@ def test_slab_residual_cancellation():
     x = rng.standard_normal((A.shape[0],) + jK.dof_shape)
     ax = np.asarray(jax.jit(JSys(jK, jM, A, B).vmult)(jnp.asarray(x)))
     rhs = ax * (1.0 + 1e-5 * rng.standard_normal(ax.shape))
-    res = SlabResidual64(tK, tM, A, B, np.zeros_like(G))
+    res = SlabResidual64(KronAssembled(tK, tM, torch.float64), tK.mask_np,
+                         A, B, np.zeros_like(G))
     r, _, _ = res.residual(torch.zeros(jK.dof_shape, dtype=torch.float64),
                            torch.as_tensor(x), torch.as_tensor(rhs))
     scale = np.linalg.norm(rhs.reshape(-1))

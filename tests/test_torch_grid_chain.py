@@ -151,7 +151,7 @@ def _ops(cells, k, dt):
                 else jnp.float32) for m, l in ((0.0, 1.0), (1.0, 0.0))]
     tops = [LaplaceMassOperator(tm, k, k + 1, m, l,
                                 dtype=_TDT[dt] if dt != "bf16"
-                                else torch.float32)
+                                else torch.float32, device="cpu")
             for m, l in ((0.0, 1.0), (1.0, 0.0))]
     return jops, tops
 

@@ -75,7 +75,8 @@ def build_slice(bf16):
         tm = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=1)
         jg = jbuild(jm, 2, 4, JT.DG, NTAO, TAU, dtype=jnp.float32,
                     fe_degree_min=1, params=_jax_params(bf16))
-        tg = build_stmg(tm, 2, 4, TT.DG, NTAO, TAU, _torch_params(bf16))
+        tg = build_stmg(tm, 2, 4, TT.DG, NTAO, TAU, _torch_params(bf16),
+                        device="cpu")
     finally:
         if saved is None:
             os.environ.pop("STFEM_EIG_CACHE")
@@ -84,8 +85,10 @@ def build_slice(bf16):
     A, B, _, _ = get_fe_time_weights(JT.DG, 2, TAU, NTAO)
     jK = JOp(jm, 4, 5, 0.0, 1.0, dtype=jnp.float32)
     jM = JOp(jm, 4, 5, 1.0, 0.0, dtype=jnp.float32)
-    tK = LaplaceMassOperator(tm, 4, 5, 0.0, 1.0, dtype=torch.float32)
-    tM = LaplaceMassOperator(tm, 4, 5, 1.0, 0.0, dtype=torch.float32)
+    tK = LaplaceMassOperator(tm, 4, 5, 0.0, 1.0, dtype=torch.float32,
+                             device="cpu")
+    tM = LaplaceMassOperator(tm, 4, 5, 1.0, 0.0, dtype=torch.float32,
+                             device="cpu")
     b = np.random.default_rng(0).standard_normal(
         (A.shape[0],) + jK.dof_shape).astype(np.float32) * jK.mask_np
     return jg, tg, JSys(jK, jM, A, B), SystemMatrix(tK, tM, A, B), b
@@ -181,7 +184,7 @@ def test_relaxation_omega_estimator_exact():
     tinfo = tsm.estimate_eigenvalues(_Identity(), composite, shape,
                                      jK.mask_np, method="arnoldi")
     jo = jsm.relaxation_parameters(jinfo, 1.0)
-    to = tsm.relaxation_parameters(tinfo)
+    to = tsm.relaxation_parameters(tinfo, 1.0)
     assert abs(to / jo - 1.0) <= 1e-6, (jo, to)
     np.testing.assert_array_equal(
         tsm.initial_guess(shape, jK.mask_np).numpy(),
@@ -193,7 +196,8 @@ def test_vcycle_f32_carried(slice_setup):
     inverse carried across: within 1e-5 relative of stfem_tpu's."""
     jg, b = slice_setup[0], slice_setup[4]
     tm = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=1)
-    tg = build_stmg(tm, 2, 4, TT.DG, NTAO, TAU, _torch_params(False))
+    tg = build_stmg(tm, 2, 4, TT.DG, NTAO, TAU, _torch_params(False),
+                    device="cpu")
     f32 = lambda a: None if a is None else np.asarray(a, np.float32)
     for jl, tl in zip(jg.levels[1:], tg.levels[1:]):
         jv = getattr(jl.smoother, "precond", None)

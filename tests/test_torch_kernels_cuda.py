@@ -7,13 +7,16 @@ This file imports neither jax nor stfem_tpu.
 Tolerances, relative to the plain version's max norm: K1 float32 1e-5
 (f32 sums, FMA contraction), K1 bf16 8e-3 (one bf16 rounding of the
 output, 2^-8, either side); K2 float64 1e-14 (the same sums in the same
-order up to FMA contraction); K4 float32 1e-5 (f32 sums in another order),
+order up to FMA contraction); K3 float64 1e-14 (the same taps in the same
+order); K4 float32 1e-5 (f32 sums in another order),
 bf16 8e-3 (one bf16 rounding of the f32 sums, either side), float64
 1e-13."""
 import pytest
 import torch
 
 from stfem_tpu_torch.mesh.grid import StructuredMesh
+from stfem_tpu_torch.ops.banded_apply import (banded_apply,
+                                              banded_apply_reference)
 from stfem_tpu_torch.ops.grid_chain import (chain_down, chain_down_reference,
                                             chain_up, chain_up_reference)
 from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
@@ -89,6 +92,56 @@ def test_kron_pair_kernel_rejects(dev):
     D = [torch.zeros((3, 5), device=dev, dtype=torch.float64)] * 3
     with pytest.raises(ValueError):
         kron_pair(torch.zeros((1, 5, 5, 5), device=dev), D, D, 1)
+
+
+@pytest.mark.parametrize("axis", [-3, -2, -1])
+@pytest.mark.parametrize("shape,k", [((1, 65, 65, 65), 4), ((3, 17, 17, 17), 2),
+                                     ((2, 9, 13, 11), 4), ((1, 5, 7, 9), 2)])
+def test_banded_apply_kernel(dev, shape, k, axis):
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + k)
+    x = torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+    n = shape[axis]
+    D = torch.randn((2 * k + 1, n), generator=g, device=dev,
+                    dtype=torch.float64)
+    for o in range(2 * k + 1):          # zero off-range, as to_diags stores
+        lo, hi = max(0, k - o), min(n, n + k - o)
+        D[o, :lo] = 0.0
+        D[o, hi:] = 0.0
+    before = banded_apply.launches
+    y = banded_apply(x, D, axis, k)
+    torch.cuda.synchronize()
+    assert banded_apply.launches == before + 1
+    assert _rel(y, banded_apply_reference(x, D, axis, k)) <= 1e-14
+
+
+@pytest.mark.parametrize("need_K,need_M", [(True, False), (False, True)])
+def test_kron_single_output_runs_k3(dev, need_K, need_M):
+    mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=2)
+    ops = [LaplaceMassOperator(mesh, 2, 3, m, l, dtype=torch.float64,
+                               device=dev) for m, l in ((0.0, 1.0),
+                                                        (1.0, 0.0))]
+    kron = KronAssembled(*ops, torch.float64)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((3,) + mesh.dof_shape(2), generator=g, device=dev,
+                    dtype=torch.float64)
+    k3, k2 = banded_apply.launches, kron_pair.launches
+    K, M = kron.pair(x, need_K, need_M)
+    torch.cuda.synchronize()
+    assert kron_pair.launches == k2
+    assert banded_apply.launches == k3 + (7 if need_K else 3)
+    Kr, Mr = kron_pair_reference(x, kron.Md, kron.Ad, kron.k)
+    got, ref = (K, Kr) if need_K else (M, Mr)
+    assert (M if need_K else K) is None
+    assert _rel(got, ref) <= 1e-14
+
+
+def test_banded_apply_kernel_rejects(dev):
+    D = torch.zeros((3, 5), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        banded_apply(torch.zeros((2, 5, 5), device=dev), D, -1, 1)
+    with pytest.raises(ValueError):
+        banded_apply(torch.zeros((2, 5, 6), device=dev,
+                                 dtype=torch.float64), D, -1, 1)
 
 
 def _vanka_pattern(nc, k, g, dev, up=False):

@@ -40,8 +40,10 @@ def _ops(cells, k, prec):
     jdt, tdt, _ = DT[prec]
     return ((JOp(jm, k, k + 1, 0.0, 1.0, dtype=jdt),
              JOp(jm, k, k + 1, 1.0, 0.0, dtype=jdt)),
-            (LaplaceMassOperator(tm, k, k + 1, 0.0, 1.0, dtype=tdt),
-             LaplaceMassOperator(tm, k, k + 1, 1.0, 0.0, dtype=tdt)))
+            (LaplaceMassOperator(tm, k, k + 1, 0.0, 1.0, dtype=tdt,
+                                 device="cpu"),
+             LaplaceMassOperator(tm, k, k + 1, 1.0, 0.0, dtype=tdt,
+                                 device="cpu")))
 
 
 def _close(got, ref, tol):
@@ -144,7 +146,7 @@ def test_force_assembler_batched(prec):
     jf = JForce(jm, k, k + 1, lambda p, t: jheat.rhs(p, t, 1.0), mask,
                 dtype=jdt)
     tf = ForceAssembler(tm, k, k + 1, lambda p, t: theat.rhs(p, t, 1.0),
-                        mask, dtype=tdt)
+                        mask, dtype=tdt, device="cpu")
     ts = np.array([0.01, 0.03, 0.0625, 0.2])
     sc = np.array([0.5, 1.0, 0.25, 2.0])
     _close(tf.batched(torch.as_tensor(ts, dtype=tdt),

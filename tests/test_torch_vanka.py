@@ -45,8 +45,10 @@ def _pair(cells, k, ns, bf16):
     A, B, _, _ = get_fe_time_weights(JT.DG, 2, 0.125, ns)
     jK = JOp(jm, k, k + 1, 0.0, 1.0, dtype=jnp.float32)
     jM = JOp(jm, k, k + 1, 1.0, 0.0, dtype=jnp.float32)
-    tK = LaplaceMassOperator(tm, k, k + 1, 0.0, 1.0, dtype=torch.float32)
-    tM = LaplaceMassOperator(tm, k, k + 1, 1.0, 0.0, dtype=torch.float32)
+    tK = LaplaceMassOperator(tm, k, k + 1, 0.0, 1.0, dtype=torch.float32,
+                             device="cpu")
+    tM = LaplaceMassOperator(tm, k, k + 1, 1.0, 0.0, dtype=torch.float32,
+                             device="cpu")
     jdt = jnp.bfloat16 if bf16 else jnp.float32
     tdt = torch.bfloat16 if bf16 else torch.float32
     jv = JVanka(jK, jM, A, B, dtype=jdt,
@@ -158,14 +160,15 @@ def test_transfers(mgt):
             mc = jm
         args = (P, jm.boundary_dof_mask(kh), mc.boundary_dof_mask(kl))
         jt = jtr.SpaceTransfer(*args, dtype=jnp.float64)
-        tt = ttr.SpaceTransfer(*args, dtype=torch.float64)
+        tt = ttr.SpaceTransfer(*args, dtype=torch.float64, device="cpu")
         xc = rng.standard_normal((3,) + mc.dof_shape(kl))
         xf = rng.standard_normal((3,) + jm.dof_shape(kh))
     else:
         j_mg, t_mg = JMG[mgt], TMG[mgt]
         nlo = 2 if mgt == "k" else 3
         jt = jtr.TimeTransfer(JT.DG, j_mg, 3, nlo, 4, dtype=jnp.float64)
-        tt = ttr.TimeTransfer(TT.DG, t_mg, 3, nlo, 4, dtype=torch.float64)
+        tt = ttr.TimeTransfer(TT.DG, t_mg, 3, nlo, 4, dtype=torch.float64,
+                              device="cpu")
         nc = nlo * (4 if mgt == "k" else 2)
         xc = rng.standard_normal((nc, 5, 5))
         xf = rng.standard_normal((12, 5, 5))

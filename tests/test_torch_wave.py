@@ -33,6 +33,7 @@ from stfem_tpu_torch import types as ttypes
 from stfem_tpu_torch.integrators import WaveVelocityRecovery
 from stfem_tpu_torch.krylov import richardson_solve
 from stfem_tpu_torch.mesh.grid import StructuredMesh
+from stfem_tpu_torch.ops.kronfac import KronAssembled
 from stfem_tpu_torch.ops.slab_residual import SlabResidual64
 from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
 from stfem_tpu_torch.stmg.gmg import GMGParams, build_stmg
@@ -80,8 +81,10 @@ def _wave_residual_inputs(random_gamma_k):
     deg = 3
     jK = JOp(jm, deg, deg + 1, 0.0, 1.0, dtype=jnp.float64)
     jM = JOp(jm, deg, deg + 1, 1.0, 0.0, dtype=jnp.float64)
-    tK = LaplaceMassOperator(tm, deg, deg + 1, 0.0, 1.0, dtype=torch.float64)
-    tM = LaplaceMassOperator(tm, deg, deg + 1, 1.0, 0.0, dtype=torch.float64)
+    tK = LaplaceMassOperator(tm, deg, deg + 1, 0.0, 1.0, dtype=torch.float64,
+                             device="cpu")
+    tM = LaplaceMassOperator(tm, deg, deg + 1, 1.0, 0.0, dtype=torch.float64,
+                             device="cpu")
     first = jtab.get_fe_time_weights(jtypes.TimeStepType.DG, 2, 1 / 16, 1)
     A, B, uK, uM, vM = jtab.get_fe_time_weights_wave(
         jtypes.TimeStepType.DG, *first, 4)
@@ -108,7 +111,8 @@ def test_wave_slab_residual(random_gamma_k):
     rhs_ref = (run(JSys(jK, jM, uK, uM), pu[None])
                + run(JSys(jK, jM, np.zeros_like(vM), vM), pv[None]) + f)
     r_ref = rhs_ref - run(JSys(jK, jM, A, B), x)
-    res = SlabResidual64(tK, tM, A, B, uM, Gamma_K=uK, Gamma_v=vM)
+    res = SlabResidual64(KronAssembled(tK, tM, torch.float64), tK.mask_np,
+                         A, B, uM, Gamma_K=uK, Gamma_v=vM)
     assert res.full_coupling
     t = torch.as_tensor
     r, rn, bn = res.residual(t(pu), t(x), t(f), t(pv))
@@ -145,7 +149,7 @@ def test_wave_velocity_recovery(n_steps):
     rhs = (np.einsum("ij,sjn->sin", B1, us)
            - G1[:, 0][None, :, None] * pu.reshape(n_steps, 1, -1))
     ref = np.linalg.solve(A1[None], rhs).reshape(u.shape)
-    rec = WaveVelocityRecovery(A1, B1, G1, n_steps)
+    rec = WaveVelocityRecovery(A1, B1, G1, n_steps, device="cpu")
     got = rec.all_steps(torch.as_tensor(u), torch.as_tensor(prev))
     assert got.dtype == torch.float32
     assert np.max(np.abs(got.double().numpy() - ref)) <= 1e-5 * np.max(
@@ -181,7 +185,7 @@ def build_wave_slice(bf16):
                     problem=jtypes.ProblemType.wave, dtype=jnp.float32,
                     fe_degree_min=1, params=_jax_params(bf16))
         tg = build_stmg(tm, 2, 4, ttypes.TimeStepType.DG, NTAO, TAU,
-                        _torch_params(bf16),
+                        _torch_params(bf16), device="cpu",
                         problem=ttypes.ProblemType.wave)
     finally:
         if saved is None:
@@ -193,8 +197,10 @@ def build_wave_slice(bf16):
                                          NTAO)[:2]
     jK = JOp(jm, 4, 5, 0.0, 1.0, dtype=jnp.float32)
     jM = JOp(jm, 4, 5, 1.0, 0.0, dtype=jnp.float32)
-    tK = LaplaceMassOperator(tm, 4, 5, 0.0, 1.0, dtype=torch.float32)
-    tM = LaplaceMassOperator(tm, 4, 5, 1.0, 0.0, dtype=torch.float32)
+    tK = LaplaceMassOperator(tm, 4, 5, 0.0, 1.0, dtype=torch.float32,
+                             device="cpu")
+    tM = LaplaceMassOperator(tm, 4, 5, 1.0, 0.0, dtype=torch.float32,
+                             device="cpu")
     b = np.random.default_rng(0).standard_normal(
         (A.shape[0],) + jK.dof_shape).astype(np.float32) * jK.mask_np
     return jg, tg, JSys(jK, jM, A, B), SystemMatrix(tK, tM, A, B), b
@@ -262,7 +268,8 @@ def test_vcycle_carried(slice_setup):
     jg, b = slice_setup[0], slice_setup[4]
     tm = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=1)
     tg = build_stmg(tm, 2, 4, ttypes.TimeStepType.DG, NTAO, TAU,
-                    _torch_params(False), problem=ttypes.ProblemType.wave)
+                    _torch_params(False), device="cpu",
+                    problem=ttypes.ProblemType.wave)
     f32 = lambda a: None if a is None else np.asarray(a, np.float32)
     for jl, tl in zip(jg.levels[1:], tg.levels[1:]):
         jv = getattr(jl.smoother, "precond", None)
