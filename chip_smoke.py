@@ -8,7 +8,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. build: nvcc builds the hand-written kernels from csrc/, one process
      per source, in parallel (-Xptxas -v);
   3. K1 parity: time_solve kernel vs its plain torch version at the bench
-     shape (S=32, nt=3, N=512,000), bf16 and f32, with both times;
+     shape (S=32, nt=3, N=512,000), bf16 and f32, and at the coefficient
+     path's cell-local Vanka shapes (S=8, nt=3 and S=4, nt=2 at
+     N=262,144), f32, with both times;
   4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
      B=128 in float64, with both times;
   4b. K3 parity: banded_apply kernel vs its plain torch version along each
@@ -20,11 +22,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      torch version with Vanka-banded matrices at the heat fine level
      (96 x 65^3 <-> 80^3) and the wave fine level (48 x 33^3 <-> 40^3),
      bf16 and f32, with both times;
+  5b. K5 parity: the quadrature middle vs its plain torch version at the
+     coefficient path's outer-operator shape (T=24, C=4096, A=64, PhiG
+     64 x 256 and W 4096 x 256 from the 16^3 Q3 route-3 tables), float64
+     (relative 1e-12) and float32 (1e-5), and at its rhs-slice shape
+     (T=3) in float64, with both times, the cuBLAS yardstick (the same
+     four products as torch.matmul calls with the weight multiply between
+     them) and the bound (FP64 operations at the tensor-core rate);
   6. small-input checks: the heat and the wave solve at 4^3 cells,
      ntao=4 on the GPU against the same solve on the CPU (plain torch
      kernels) and against the exact solution; the Stokes solve at 4^3
      cells, ntao=4 on the GPU against the CPU (relative 1e-6, V-cycles
-     within 1, TRUE <= 1e-8 on both);
+     within 1, TRUE <= 1e-8 on both); the tp_01 practical mode reduced to
+     4^3 cells, 2 steps per slab, 2 slabs, on the GPU against the CPU
+     (both converged, FGMRES iterations within 1, relative 1e-8);
   7. heat main path: bench_heat at its defaults (16^3 cells, 32 steps per
      slab) for the probe plus 2 timed slabs and one profiled, untimed
      slab; every slab must reach a TRUE relative residual <= 1e-8, and
@@ -39,6 +50,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      profiled, untimed slab; every slab must reach TRUE <= 1e-8 and K2 and
      K3 must each launch in this run.  K3 (the rhs coupling's M x) must
      launch on the heat and wave paths too.
+ 10. coefficient main path: drivers/tp01.run_single on
+     configs/tp01_practical_3d.json (16^3 cells, Q3 x dG(2), 8 steps per
+     slab, 4 slabs, distorted coefficient, FP64 FGMRES with the f32
+     V-cycle), then one more slab under the profiler; per slab the FGMRES
+     iterations, the slab wall (TimerOutput "step") and space-time DoF/s,
+     and the mean DoF/s over the slabs that took FGMRES iterations.
+     Every slab's true FP64 residual, evaluated through the GridSumFac
+     route (no code shared with K5), must meet FGMRES's own stop test
+     ||r|| <= max(abstol, reltol ||r0||) within a factor 2; K5 and K1 must
+     each launch in this run.
 Then it prints the nvidia-smi line, a JSON line describing the kernels,
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the stfem_tpu_torch package beside it, it exits non-zero and
@@ -48,6 +69,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,9 +99,9 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-# NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; FP32 67 TFLOP/s and FP64
-# 34 TFLOP/s outside the tensor cores
-HBM_BPS, PEAK_FLOPS = 3.35e12, {"f32": 67e12, "f64": 34e12}
+# NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; FP32 67 TFLOP/s outside the
+# tensor cores; FP64 67 TFLOP/s on the tensor cores (DMMA; 34 outside them)
+HBM_BPS, PEAK_FLOPS = 3.35e12, {"f32": 67e12, "f64": 67e12}
 
 
 def _bound(n_bytes: float, flops: float, kind: str):
@@ -114,6 +136,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from stfem_tpu_torch import bench_heat, bench_stokes, bench_wave
+        from stfem_tpu_torch.config import Parameters
+        from stfem_tpu_torch.drivers import tp01
         from stfem_tpu_torch.mesh.grid import StructuredMesh
         from stfem_tpu_torch.ops import cuda_kernels
         from stfem_tpu_torch.ops.banded_apply import (banded_apply,
@@ -125,12 +149,19 @@ def main() -> int:
         from stfem_tpu_torch.ops.kron_pair import (kron_pair,
                                                    kron_pair_reference)
         from stfem_tpu_torch.ops.kronfac import KronAssembled
+        from stfem_tpu_torch.ops.quad_middle import (quad_middle,
+                                                     quad_middle_reference)
         from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
         from stfem_tpu_torch.ops.stokes import StokesOperator
         from stfem_tpu_torch.ops.stokes_residual import KronStokes64
         from stfem_tpu_torch.ops.time_solve import (time_solve,
                                                     time_solve_reference)
         from stfem_tpu_torch.problems import heat
+        from stfem_tpu_torch.problems.coefficient import Coefficient
+        from stfem_tpu_torch.system import SystemMatrix
+        from stfem_tpu_torch.time.tables import get_fe_time_weights
+        from stfem_tpu_torch.types import TimeStepType
+        from stfem_tpu_torch.utils.timer import TimerOutput
     except ImportError as e:
         print(f"chip_smoke: the stfem_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -159,26 +190,36 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     report = {}
 
-    # 3. K1 parity at the bench shape
-    S, nt, N = 32, 3, (16 * 5) ** 3
-    G = (0.3 * torch.randn((nt, nt, N), generator=gen, device=dev))
-    c = torch.rand((nt, N), generator=gen, device=dev) * 1.8 - 0.9
-    for dt, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
-        w = torch.randn((S * nt, N), generator=gen, device=dev).to(dt)
-        got = time_solve(w, G, c, S, nt, dt).float()
-        ref = time_solve_reference(w, G, c, S, nt, dt).float()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        ms = _cuda_ms(lambda: time_solve(w, G, c, S, nt, dt), 20)
-        plain = _cuda_ms(lambda: time_solve_reference(w, G, c, S, nt, dt), 5)
-        print(f"# K1 time_solve {str(dt)[6:]}: max_abs_err {err:.3e} "
-              f"(rel to max {err / scale:.3e}, tol {tol:g}) kernel "
-              f"{ms:.4f} ms plain {plain:.4f} ms", flush=True)
-        if not err <= tol * scale:
-            raise AssertionError("K1 disagrees with its plain version")
-        if dt == torch.bfloat16:      # the bench's level dtype
-            # read w, the factors and write y once; 2 nt (nt + 1) flops per
-            # position and step, in float32
+    # 3. K1 parity at the heat bench's shape and at the coefficient path's
+    #    cell-local Vanka shapes (16^3 Q3: N = C A = 262,144; dG(2) levels
+    #    with 8 and 4 steps, dG(1) levels with 4)
+    for S, nt, N, dts in (
+            (32, 3, (16 * 5) ** 3, ((torch.bfloat16, 8e-3),
+                                    (torch.float32, 1e-5))),
+            (8, 3, 4096 * 64, ((torch.float32, 1e-5),)),
+            (4, 2, 4096 * 64, ((torch.float32, 1e-5),))):
+        G = (0.3 * torch.randn((nt, nt, N), generator=gen, device=dev))
+        c = torch.rand((nt, N), generator=gen, device=dev) * 1.8 - 0.9
+        for dt, tol in dts:
+            w = torch.randn((S * nt, N), generator=gen, device=dev).to(dt)
+            got = time_solve(w, G, c, S, nt, dt).float()
+            ref = time_solve_reference(w, G, c, S, nt, dt).float()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            ms = _cuda_ms(lambda: time_solve(w, G, c, S, nt, dt), 20)
+            plain = _cuda_ms(lambda: time_solve_reference(w, G, c, S, nt,
+                                                          dt), 5)
+            print(f"# K1 time_solve S={S} nt={nt} N={N} {str(dt)[6:]}: "
+                  f"max_abs_err {err:.3e} (rel to max {err / scale:.3e}, "
+                  f"tol {tol:g}) kernel {ms:.4f} ms plain {plain:.4f} ms",
+                  flush=True)
+            if not err <= tol * scale:
+                raise AssertionError("K1 disagrees with its plain version")
+            if S != 32 or dt != torch.bfloat16:
+                continue
+            # at the heat bench's shape and level dtype: read w, the
+            # factors and write y once; 2 nt (nt + 1) flops per position
+            # and step, in float32
             bound = _bound(_nbytes(w, G, c) + _nbytes(got.to(dt)),
                            2.0 * nt * (nt + 1) * S * N, "f32")
             report["time_solve"] = (err, ms, plain, None) + bound
@@ -298,6 +339,60 @@ def main() -> int:
 
     phase_done("K4")
 
+    # 5b. K5 parity at the coefficient path's outer-operator shape, with
+    #     the route-3 tables of its 16^3 Q3 operator
+    cmesh = StructuredMesh([4, 4, 4], [0.0] * 3, [1.0] * 3, refinement=2)
+    coef = Coefficient([4, 4, 4], [0.0] * 3, [1.0] * 3, 0.5)
+    qsys = SystemMatrix(
+        LaplaceMassOperator(cmesh, 3, 4, 0.0, 1.0, device=dev,
+                            coefficient=coef),
+        LaplaceMassOperator(cmesh, 3, 4, 1.0, 0.0, device=dev),
+        np.eye(24), np.eye(24))
+    assert qsys.route == "quad"
+    Q = 64
+    # the outer operator (24 blocks) in both types, and the FP64 rhs slice
+    # (3 rows from 1 source block)
+    for T, dt, tol, kind in ((24, torch.float64, 1e-12, "f64"),
+                             (24, torch.float32, 1e-5, "f32"),
+                             (3, torch.float64, 1e-12, "f64")):
+        P, PT, W = (t.to(dt).contiguous()
+                    for t in (qsys._phig, qsys._phigT, qsys._w))
+        ub, ua = (torch.randn((T, cmesh.n_cells, 64), generator=gen,
+                              device=dev, dtype=dt) for _ in range(2))
+        got = quad_middle(ub, ua, P, W, Q, PT)
+        ref = quad_middle_reference(ub, ua, P, W, Q)
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        del ref
+
+        def cublas():
+            T_, C_, A_ = ub.shape
+            qv = (ub.reshape(T_ * C_, A_) @ P[:, :Q]).reshape(T_, C_, Q)
+            qg = (ua.reshape(T_ * C_, A_) @ P[:, Q:]).reshape(T_, C_, -1)
+            return ((qv * W[:, :Q]).reshape(T_ * C_, Q) @ P[:, :Q].T
+                    + (qg * W[:, Q:]).reshape(T_ * C_, -1) @ P[:, Q:].T)
+
+        ms = _cuda_ms(lambda: quad_middle(ub, ua, P, W, Q, PT), 20)
+        plain = _cuda_ms(lambda: quad_middle_reference(ub, ua, P, W, Q), 5)
+        lib = _cuda_ms(cublas, 5)
+        # read ub, ua, PhiG and W, write y once; 2 flops per multiply-add,
+        # A x NQ of them forward and back per block and cell
+        bound = _bound(_nbytes(ub, ua, P, W, got),
+                       4.0 * ub.numel() * P.shape[1], kind)
+        print(f"# K5 quad_middle {kind} T={T} C=4096 A=64 NQ=256: "
+              f"max_abs_err {err:.3e} (rel to max {rel:.3e}, tol {tol:g}) "
+              f"kernel {ms:.4f} ms plain {plain:.4f} ms cuBLAS four "
+              f"products {lib:.4f} ms bound {bound[0]:.4f} ms ({bound[1]})",
+              flush=True)
+        if not rel <= tol:
+            raise AssertionError("K5 disagrees with its plain version")
+        if T == 24 and dt == torch.float64:     # the outer operator
+            report["quad_middle"] = (err, ms, plain, None) + bound
+        del ub, ua, got
+    del qsys
+    torch.cuda.empty_cache()
+    phase_done("K5")
+
     # 6. small inputs: GPU kernels vs the CPU plain path, and vs the exact
     #    solution at the end of the last slab
     torch.set_num_threads(1)
@@ -340,18 +435,44 @@ def main() -> int:
             and all(abs(a - b) <= 1
                     for a, b in zip(ig["iters"], ic["iters"]))):
         raise AssertionError("small-input stokes check failed")
+    with tempfile.TemporaryDirectory() as tmpd:
+        with open(tp01.PRACTICAL_3D) as f:
+            cfg = json.load(f)
+        cfg.update(subdivisions="2,2,2", refinement=1, nTimestepsAtOnce=2,
+                   endTime=0.25)
+        small = {}
+        for where in ("cuda", "cpu"):
+            cfg["functionalFile"] = os.path.join(tmpd, f"f_{where}.txt")
+            path = os.path.join(tmpd, f"{where}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            p = Parameters.parse(path, 3)
+            # run_single raises if a slab's FGMRES does not converge
+            small[where] = tp01.run_single(p, p.fe_degree, p.refinement,
+                                           device=where)
+    rg, rc = small["cuda"], small["cpu"]
+    diff = float((rg.solution.cpu() - rc.solution).norm()
+                 / rc.solution.norm())
+    print(f"# small tp01 practical 4^3 ntao=2: FGMRES iterations/slab gpu "
+          f"{rg.slab_iterations} cpu {rc.slab_iterations}, both converged, "
+          f"|x_gpu - x_cpu|/|x_cpu| {diff:.2e} (tol 1e-8)", flush=True)
+    if not (diff <= 1e-8 and all(
+            abs(a - b) <= 1 for a, b in zip(rg.slab_iterations,
+                                            rc.slab_iterations))):
+        raise AssertionError("small-input tp01 check failed")
     phase_done("small inputs")
 
     # 7-8. the main paths at the bench defaults, each with the launch
     #      counts set to 0 just before it and read just after
     wrappers = {"time_solve": time_solve, "kron_pair": kron_pair,
                 "banded_apply": banded_apply, "chain_down": chain_down,
-                "chain_up": chain_up}
+                "chain_up": chain_up, "quad_middle": quad_middle}
     path_kernels = {"heat": ("time_solve", "kron_pair", "banded_apply",
                              "chain_down", "chain_up"),
                     "wave": ("kron_pair", "banded_apply", "chain_down",
                              "chain_up"),
-                    "stokes": ("kron_pair", "banded_apply")}
+                    "stokes": ("kron_pair", "banded_apply"),
+                    "coefficient": ("time_solve", "quad_middle")}
     launches = dict.fromkeys(wrappers, 0)
     for label, bench, args in (("heat", bench_heat, (16, 32)),
                                ("wave", bench_wave, (8, 16)),
@@ -395,6 +516,73 @@ def main() -> int:
             launches[name] += c
         phase_done(f"{label} main path")
 
+    # 10. the coefficient main path: tp_01 practical mode at 16^3, 4 slabs
+    for w in wrappers.values():
+        w.launches = 0
+    timer, slabs = TimerOutput(), []
+    with tempfile.TemporaryDirectory() as tmpd:
+        p = Parameters.parse(str(tp01.PRACTICAL_3D), 3)
+        p.functional_file = os.path.join(tmpd, "functionals.txt")
+        wall0 = time.time()
+        res = tp01.run_single(p, p.fe_degree, p.refinement, timer=timer,
+                              device="cuda",
+                              on_slab=lambda *a: slabs.append(a))
+        wall = time.time() - wall0
+        counts = {name: w.launches for name, w in wrappers.items()}
+        with open(p.functional_file) as f:
+            n_rows = sum(1 for line in f if line.strip())
+    st_dofs = res.n_blocks * res.n_dofs
+    walls = timer.times["step"]
+    print(f"# coefficient 16^3 Q3 ntao=8 ({st_dofs} space-time DoFs per "
+          f"slab): setup {timer.totals['setup']:.2f} s (hierarchy "
+          f"{timer.totals['setup:gmg']:.2f} s), phase wall {wall:.1f} s, "
+          f"{n_rows} functionals rows", flush=True)
+    # untimed: each slab's true FP64 residual through the GridSumFac route
+    integ = slabs[0][0]
+    K, M = integ.matrix.K, integ.matrix.M
+    Al, Be, Ga, _ = get_fe_time_weights(TimeStepType.DG, p.fe_degree,
+                                        slabs[0][2], p.n_timesteps_at_once)
+    A_grid = SystemMatrix(K, M, Al, Be, route="grid")
+    R_grid = SystemMatrix(K, M, np.zeros_like(Ga), Ga, route="grid")
+    ok = True
+    for i, ((_, t, dt, prev, x, stats), w) in enumerate(zip(slabs, walls)):
+        rhs = R_grid.vmult(prev[None]) + integ.assemble_force(t, dt)
+        rn = float((rhs - A_grid.vmult(x)).norm())
+        r0 = float((rhs - A_grid.vmult(integ._extrapolate(prev))).norm())
+        tol = max(integ.abstol, integ.reltol * r0)
+        print(f"# coefficient slab {i}: FGMRES iterations {stats.iterations}"
+              f", slab wall {w:.4f} s, {st_dofs / w:.4e} space-time DoF/s; "
+              f"true FP64 ||r|| {rn:.3e} (/||rhs|| {rn / float(rhs.norm()):.3e}"
+              f", /||r0|| {rn / r0:.3e}) vs FGMRES tol {tol:.3e}, Givens "
+              f"estimate {stats.residual:.3e}", flush=True)
+        ok = ok and stats.converged and rn <= 2.0 * tol
+    # slab 0 again: the later slabs' fields have decayed below FGMRES's
+    # abstol and take no iteration
+    _, t, dt, prev, _, _ = slabs[0]
+    prof = bench_heat.profile_slab(lambda: integ.solve(prev, t, dt), dev)
+    print(f"# coefficient: profile of slab 0 again (untimed): device busy "
+          f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall "
+          f"(share {prof['device_busy_share']:.4f}), "
+          f"{prof['n_kernel_launches']} launches, trace stop "
+          f"{prof['exit_s']:.2f} s, summary {prof['summary_s']:.2f} s; top "
+          f"kernels (ms) {prof['top_kernels_ms'][:6]}; top ops (ms) "
+          f"{prof['top_ops_ms'][:6]}", flush=True)
+    # slabs whose extrapolated start already meets abstol do no solve work
+    busy = [w for (*_, stats), w in zip(slabs, walls) if stats.iterations]
+    print(f"# coefficient launches {counts}; slabs {len(walls)}, of which "
+          f"{len(busy)} took FGMRES iterations: mean over those "
+          f"{st_dofs * len(busy) / max(sum(busy), 1e-30):.4e} space-time "
+          f"DoF/s", flush=True)
+    if not (ok and len(walls) == 4):
+        raise AssertionError("coefficient path: a slab missed its residual")
+    missing = [n for n in path_kernels["coefficient"] if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"coefficient: kernels never ran: {missing}")
+    for name, c in counts.items():
+        launches[name] += c
+    del slabs, integ, A_grid, R_grid
+    phase_done("coefficient main path")
+
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),
                "kron_pair": ("stfem_tpu_torch/csrc/kron_pair.cu",
@@ -402,7 +590,9 @@ def main() -> int:
                "banded_apply": ("stfem_tpu_torch/csrc/banded_apply.cu",
                                 "stfem_tpu/ops/pallas_ffband.py:92"),
                "grid_chain": ("stfem_tpu_torch/csrc/grid_chain.cu",
-                              "stfem_tpu/ops/pallas_grid.py:158")}
+                              "stfem_tpu/ops/pallas_grid.py:158"),
+               "quad_middle": ("stfem_tpu_torch/csrc/quad_middle.cu",
+                               "stfem_tpu/ops/pallas_kernels.py:86")}
     launches["grid_chain"] = launches["chain_down"] + launches["chain_up"]
     kernels = []
     for name, (src, rep) in sources.items():

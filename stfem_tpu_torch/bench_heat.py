@@ -38,7 +38,7 @@ from .ops.kronfac import KronAssembled
 from .ops.slab_residual import SlabResidual64
 from .ops.spatial import LaplaceMassOperator
 from .problems import heat as heat_problem
-from .stmg.gmg import GMGParams, build_stmg
+from .stmg.gmg import bench_params, build_stmg
 from .system import SystemMatrix
 from .time.tables import get_fe_time_weights, get_time_quad
 from .types import TimeStepType
@@ -81,7 +81,7 @@ def run(cells: int = 16, ntao: int = 32, n_slabs: int = 10,
     matrix = SystemMatrix(K, M, Alpha, Beta)
     rhs_matrix = SystemMatrix(K, M, np.zeros_like(Gamma), Gamma)
     gmg = build_stmg(mesh, FE_DEGREE, SPACE_DEGREE, TimeStepType.DG, ntao,
-                     TAU, GMGParams(eig_proxy_cells=eig_proxy_cells),
+                     TAU, bench_params(eig_proxy_cells=eig_proxy_cells),
                      dtype=f32, device=device)
     _sync(device)
     print(f"# setup/hierarchy {time.time() - t_setup:.1f}s", flush=True)
@@ -114,7 +114,8 @@ def run(cells: int = 16, ntao: int = 32, n_slabs: int = 10,
             return richardson_solve(matrix.vmult, b, x0, gmg.vmult,
                                     maxiter=RICHARDSON_MAXITER, reltol=reltol)
         return fgmres(matrix.vmult, b, x0, gmg.vmult,
-                      maxiter=FGMRES_MAXITER, reltol=reltol)
+                      maxiter=FGMRES_MAXITER, reltol=reltol, abstol=1e-30,
+                      reorthogonalize=False)
 
     def first_solve(kind, prev32, t, reltol):
         rhs = (rhs_matrix.vmult(prev32[None])

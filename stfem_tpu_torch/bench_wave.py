@@ -46,7 +46,7 @@ from .ops.kronfac import KronAssembled
 from .ops.slab_residual import SlabResidual64
 from .ops.spatial import LaplaceMassOperator
 from .problems import heat as problem
-from .stmg.gmg import GMGParams, build_stmg
+from .stmg.gmg import bench_params, build_stmg
 from .system import SystemMatrix
 from .time.tables import (get_fe_time_weights, get_fe_time_weights_wave,
                           get_time_quad)
@@ -88,7 +88,7 @@ def run(cells: int = 8, ntao: int = 16, n_slabs: int = 6, device="cuda",
     r_u = SystemMatrix(K, M, rhs_uK, rhs_uM)
     r_v = SystemMatrix(K, M, np.zeros_like(rhs_vM), rhs_vM)
     gmg = build_stmg(mesh, FE_DEGREE, SPACE_DEGREE, dg, ntao, TAU,
-                     GMGParams(eig_proxy_cells=0, eig_exact=False),
+                     bench_params(ProblemType.wave, eig_exact=False),
                      dtype=f32, device=device, problem=ProblemType.wave)
     _sync(device)
     print(f"# setup/hierarchy {time.time() - t_setup:.1f}s", flush=True)

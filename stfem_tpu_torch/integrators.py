@@ -1,18 +1,24 @@
-"""Spatial right-hand-side assembly and the wave velocity recovery
-(counterpart of stfem_tpu/integrators.py::ForceAssembler and of the DG
-recovery of TimeIntegratorWave._solve_wave_impl; the time integrator
-classes themselves are not ported -- bench_heat.py and bench_wave.py run
-the time loops)."""
+"""Spatial right-hand-side assembly, the first-order slab integrator and
+the wave velocity recovery (counterpart of stfem_tpu/integrators.py:
+ForceAssembler, TimeIntegratorFO, and the DG recovery of
+TimeIntegratorWave._solve_wave_impl).  TimeIntegratorFO drives the tp_01
+heat cycle (drivers/heat.py); bench_heat.py and bench_wave.py run their
+own time loops.  TimeIntegratorWave and the strong-Dirichlet lift of
+TimeIntegratorFO are not ported."""
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
+from .krylov import fgmres
 from .mesh.fe import shape_data_1d
 from .mesh.grid import StructuredMesh
 from .ops.spatial import _sumfac, cell_scatter
+from .time.tables import get_time_quad
+from .types import TimeStepType
 from .utils.precision import full_precision
 
 
@@ -52,6 +58,80 @@ class ForceAssembler:
             fq = self.rhs_fn(self.coords, ts.reshape(lead))
             fq = fq * self.jxw * scales.reshape(lead)
             return self._integrate(fq)
+
+
+@dataclass
+class SolveStats:
+    iterations: int
+    residual: float
+    converged: bool
+
+
+class TimeIntegratorFO:
+    """First-order-in-time slab integrator (reference TimeIntegratorFO,
+    include/time_integrators.h:300-321; stfem_tpu integrators.py:73-177):
+    the slab rhs from the previous solution (rhs_matrix.vmult) plus the
+    force at the time quadrature points, then FGMRES preconditioned by
+    `preconditioner` (a callable; None = unpreconditioned)."""
+
+    def __init__(self, type_: TimeStepType, time_degree: int,
+                 Alpha_1: np.ndarray, Gamma_1: np.ndarray,
+                 gmres_reltol: float, matrix, preconditioner,
+                 rhs_matrix, force: ForceAssembler,
+                 n_timesteps_at_once: int, extrapolate: bool = True,
+                 abstol: float = 1e-12, maxiter: int = 100):
+        self.type_ = type_
+        self.quad_time = get_time_quad(type_, time_degree)[0]
+        self.Alpha_1 = np.asarray(Alpha_1)
+        self.Gamma_1 = np.asarray(Gamma_1)
+        self.reltol, self.abstol, self.maxiter = gmres_reltol, abstol, maxiter
+        self.matrix = matrix
+        self.preconditioner = preconditioner or (lambda v: v)
+        self.rhs_matrix = rhs_matrix
+        self.force = force
+        self.n_timesteps_at_once = n_timesteps_at_once
+        self.nt_dofs = (time_degree + 1 if type_ == TimeStepType.DG
+                        else time_degree)
+        self.extrapolate = extrapolate
+
+    def assemble_force(self, time: float, time_step: float) -> torch.Tensor:
+        """[n_blocks, *dofshape]: the force at each time quadrature point,
+        weighted by the diagonal time mass (reference
+        include/time_integrators.h:73-110)."""
+        nt = self.nt_dofs
+        parts = [None] * (nt * self.n_timesteps_at_once)
+
+        def add(b, F, c):
+            parts[b] = F * c if parts[b] is None else parts[b] + F * c
+
+        for it in range(self.n_timesteps_at_once):
+            for j, tq in enumerate(self.quad_time):
+                F = self.force(time + time_step * it + time_step * tq)
+                if self.type_ == TimeStepType.DG:
+                    add(it * nt + j, F, self.Alpha_1[j, j])
+                elif j == 0:
+                    for i in range(nt):
+                        add(it * nt + i, F, -self.Gamma_1[i, 0])
+                else:
+                    add(it * nt + j - 1, F, self.Alpha_1[j - 1, j - 1])
+        return torch.stack(parts)
+
+    def _extrapolate(self, prev_x: torch.Tensor) -> torch.Tensor:
+        n_blocks = self.nt_dofs * self.n_timesteps_at_once
+        if self.extrapolate:
+            return prev_x.expand((n_blocks,) + prev_x.shape)
+        return torch.zeros((n_blocks,) + prev_x.shape, dtype=prev_x.dtype,
+                           device=prev_x.device)
+
+    def solve(self, prev_x: torch.Tensor, time: float,
+              time_step: float) -> tuple[torch.Tensor, SolveStats]:
+        rhs = (self.rhs_matrix.vmult(prev_x[None])
+               + self.assemble_force(time, time_step))
+        res = fgmres(self.matrix.vmult, rhs, self._extrapolate(prev_x),
+                     self.preconditioner, maxiter=self.maxiter,
+                     reltol=self.reltol, abstol=self.abstol)
+        return res.x, SolveStats(res.iterations, res.residual,
+                                 res.converged)
 
 
 class WaveVelocityRecovery:

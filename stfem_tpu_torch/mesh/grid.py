@@ -1,5 +1,5 @@
-"""Structured hex meshes of a hyper-rectangle (counterpart of
-stfem_tpu/mesh/grid.py, uniform case only).
+"""Structured hex meshes of a hyper-rectangle [lower, upper] (counterpart
+of stfem_tpu/mesh/grid.py, uniform case only).
 
 DoF indexing is pure arithmetic on a tensor grid; the mesh is {cell counts,
 bounding box}.  Only the uniform axis-aligned hyper-rectangle is ported:
@@ -64,6 +64,13 @@ class StructuredMesh:
             w_tensor = w_tensor * qw.reshape(shape)
         return Geometry(jxw=w_tensor * float(np.prod(self.h)),
                         jinv_diag=1.0 / self.h)
+
+    @property
+    def coarse_cell_diameter(self) -> float:
+        """Diameter of one cell before refinement (the reference's
+        minimal_cell_diameter of the unrefined grid, tp_01.cc:87)."""
+        h0 = (self.upper - self.lower) / np.array(self.subdivisions)
+        return float(np.linalg.norm(h0))
 
     def boundary_dof_mask(self, degree: int) -> np.ndarray:
         """1.0 for interior (free) dofs, 0.0 on the domain boundary

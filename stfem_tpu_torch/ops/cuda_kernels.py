@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("time_solve.cu", "kron_pair.cu", "banded_apply.cu",
-           "grid_chain.cu")
+           "grid_chain.cu", "quad_middle.cu")
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "kernels"
             / "libstfem_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -88,6 +88,8 @@ def library() -> ctypes.CDLL:
     lib.stfem_banded_apply.restype = i32
     lib.stfem_grid_chain.argtypes = ([vp] * 6 + [i64] + [i32] * 9 + [vp])
     lib.stfem_grid_chain.restype = i32
+    lib.stfem_quad_middle.argtypes = [vp] * 6 + [i32] * 6 + [vp]
+    lib.stfem_quad_middle.restype = i32
     _LIB = lib
     return lib
 

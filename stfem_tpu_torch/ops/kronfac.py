@@ -69,7 +69,14 @@ def one_d_operators(mesh, d: int, k: int, n_q: int):
 class KronAssembled:
     """Per-axis assembled factors + the shared-prefix pair apply."""
 
+    @staticmethod
+    def supports(K_op, M_op) -> bool:
+        """True when the operators separate per axis: no coefficient field
+        (the port's meshes are uniform and unmasked)."""
+        return K_op.coeff is None and M_op.coeff is None
+
     def __init__(self, K_op, M_op, dtype):
+        assert self.supports(K_op, M_op)
         device = K_op.device
         k, dim, n_q = K_op.degree, K_op.dim, K_op.n_q
         self.dim, self.k = dim, k

@@ -1,13 +1,14 @@
 """Sum-factorized matrix-free spatial operators on structured meshes
 (counterpart of stfem_tpu/ops/spatial.py).
 
-The weak form  c_M (u, v) + c_K (grad u, grad v)  is applied to a whole
-batch of space-time blocks at once as
+The weak form  c_M (w u, v) + c_K (w grad u, grad v)  is applied to a
+whole batch of space-time blocks at once as
     gather -> per-axis 1D interpolation matmuls -> quadrature scaling
     -> transposed matmuls -> overlap-add scatter.
 The block axis is a leading batch dimension.  Dirichlet conditions are
-elimination masks: apply = mask . A(mask . x).  Only the uniform Cartesian
-geometry (diagonal Jacobian) is ported.
+elimination masks: apply = mask . A(mask . x).  An optional coefficient
+field w, evaluated once per (cell, quadrature point), multiplies both
+terms.  Only the uniform Cartesian geometry (diagonal Jacobian) is ported.
 """
 from __future__ import annotations
 
@@ -82,13 +83,15 @@ def _sumfac(mats, x, dim, forward=True):
 
 
 class LaplaceMassOperator:
-    """c_M (u, v) + c_K (grad u, grad v) on Q_degree elements of a uniform
-    Cartesian mesh; tensors live on `device` in `dtype`."""
+    """c_M (w u, v) + c_K (w grad u, grad v) on Q_degree elements of a
+    uniform Cartesian mesh, w = 1 or the coefficient field (a callable on
+    [..., dim] points, reference include/operators.h:1060-1087); tensors
+    live on `device` in `dtype`."""
 
     def __init__(self, mesh: StructuredMesh, degree: int, n_q: int,
                  mass_scaling: float, laplace_scaling: float,
                  dtype=torch.float64, device="cuda",
-                 mask: np.ndarray | None = None):
+                 mask: np.ndarray | None = None, coefficient=None):
         self.mesh = mesh
         self.degree = degree
         self.n_q = n_q
@@ -113,13 +116,31 @@ class LaplaceMassOperator:
         self.mask_np = np.asarray(mask)
         self.mask = torch.as_tensor(self.mask_np, dtype=dtype,
                                     device=self.device)
+        # the coefficient at the quadrature points, [*cells, *q] (float64
+        # numpy, for the weight tables) and its tensor
+        self.coefficient = coefficient
+        self.coeff_np = self.coeff = None
+        if coefficient is not None:
+            self.coeff_np = np.asarray(
+                coefficient(mesh.quad_coordinates(n_q)), np.float64)
+            self.coeff = torch.as_tensor(self.coeff_np, dtype=dtype,
+                                         device=self.device)
+        self.w = self.jxw if self.coeff is None else self.jxw * self.coeff
+
+    def weights_np(self) -> np.ndarray:
+        """jxw times the coefficient in float64, broadcast to [*cells,
+        *q]."""
+        w = self.mesh.geometry(self.n_q).jxw
+        if self.coeff_np is not None:
+            w = w * self.coeff_np
+        return np.broadcast_to(w, tuple(self.cells) + (self.n_q,) * self.dim)
 
     def apply(self, x: torch.Tensor):
         """y = mask . A (mask . x); x has shape [..., *dofshape]."""
         cM, cK = self.mass_scaling, self.laplace_scaling
         dim, k = self.dim, self.degree
         u = cell_gather(x * self.mask, self.cells, k)
-        S, D, w = self.S, self.D, self.jxw
+        S, D, w = self.S, self.D, self.w
         acc = None
         if cM != 0.0:
             val = _sumfac([S] * dim, u, dim) * (cM * w)
@@ -159,7 +180,7 @@ class LaplaceMassOperator:
         Grad = torch.as_tensor(Grad, dtype=self.dtype, device=self.device)
         C = self.mesh.n_cells
         Q = self.n_q ** dim
-        wq = torch.broadcast_to(self.jxw, self.cells + (self.n_q,) * dim
+        wq = torch.broadcast_to(self.w, self.cells + (self.n_q,) * dim
                                 ).reshape(C, Q)
         cM, cK = self.mass_scaling, self.laplace_scaling
         A = (k + 1) ** dim

@@ -4,30 +4,32 @@ stfem_tpu/stmg/gmg.py; the reference's GMG, stmg.h:1047-1419).
 One GMG object owns the heat, wave or Stokes hierarchy: per-level slab
 operators (level dtype, bf16 with level_bf16), Vanka smoothers,
 Relaxation/Identity smoother wiring with deterministic eigenvalue
-estimates, space transfers and dense time transfers.  The V-cycle is
-bench.py's tuned heat one (bench.py:886-923):
+estimates, space transfers and dense time transfers.  The V-cycle has
+deal.II Multigrid semantics as stfem_tpu runs them:
 
-  pre-smooth:   u = S(d), S = 2 Relaxation sweeps with the level's Vanka
-  post-smooth:  u += S(d - A u)
-  Identity levels (paired space/time levels of the reference's ladder)
-  are skipped; the coarsest level is solved by a dense float32 inverse.
-  The wave V-cycle is run_wave_bench's (bench.py:545-571): the same, with
-  variable smoothing -- on level l each pre- and post-smoothing applies S
-  2^(max_level - l) times (stfem_tpu's GMGParams default `variable`,
-  gmg.py:228-265), where the heat bench applies it once.
-  The Stokes V-cycle is run_stokes_bench's (build_stmg_stokes below):
-  variable smoothing with S = 1 Relaxation sweep, Identity levels visited
-  (their smoother returns the defect: deal.II's Richardson steps,
-  skip_identity=False), and the coarse level solved by an assembled
-  pseudo-inverse with the coarse nullspace (per-block constant pressure)
-  projected out before and after.
+  pre-smooth:   u = S(d), then u += S(d - A u) for the level's further
+                steps (smoothing_steps x 2^(max_level - l) when variable)
+  post-smooth:  that many times u += S(d - A u)
+  S = `inner` Relaxation sweeps with the level's Vanka
+  coarse:       level 0's smoother (the reference's "Smoother" coarse
+                solve) or an assembled dense inverse ("Direct")
 
-The wave hierarchy takes the Schur-reduced per-level tables
-(get_fe_time_weights_wave_sequence) and the wave bench's estimates: no
-proxy, deal.II's 20-step power method on every full level
-(eig_exact=False).  The Chebyshev smoother, the capped/asymmetric
-smoothing-step knobs, the Smoother/GMRES coarse solves and the estimate
-cache of stfem_tpu are not ported.
+The benches choose their V-cycles through bench_params: the heat one
+(bench.py:886-923) applies S = 2 sweeps once per visit, skips the
+Identity levels (paired space/time levels of the reference's ladder) and
+solves the coarsest level directly; the wave one (bench.py:545-571) is
+the same with variable smoothing and power estimates on every full level.
+The tp_01 practical mode (drivers/tp01.py) runs stfem_tpu's GMGParams
+defaults: one sweep, variable smoothing, Identity levels visited, the
+Smoother coarse solve, and a coefficient on every level.  The Stokes
+V-cycle is run_stokes_bench's (build_stmg_stokes below): variable
+smoothing with S = 1 Relaxation sweep, Identity levels visited (their
+smoother returns the defect: deal.II's Richardson steps), and the coarse
+level solved by an assembled pseudo-inverse with the coarse nullspace
+(per-block constant pressure) projected out before and after.
+
+The Chebyshev smoother, the capped/asymmetric smoothing-step knobs, the
+GMRES coarse solve and the estimate cache of stfem_tpu are not ported.
 """
 from __future__ import annotations
 
@@ -49,30 +51,64 @@ from .smoother import (IdentitySmoother, RelaxationSmoother,
                        estimate_eigenvalues, relaxation_parameters)
 from .transfers import (SpaceTransfer, TimeTransfer, h_prolongation_global_1d,
                         p_prolongation_global_1d)
-from .vanka import PreconditionVanka
+from .vanka import PreconditionVanka, cell_eigenbasis, separable
 
-INNER_SWEEPS = 2           # Relaxation sweeps per smoother application
 ARNOLDI_MAX_N = 4_000_000  # larger estimates use the 20-step power method
 
 
 @dataclass
 class GMGParams:
-    """What varies between the bench's hierarchy and the parity tests'.
+    """stfem_tpu's GMGParams fields that the ported hierarchies read, with
+    stfem_tpu's defaults (reference PreconditionerGMGAdditionalData,
+    parameters.h:12-31), plus the bench knobs:
 
+    smoothing_steps: MG smoothing steps per level visit (times
+        2^(max_level - l) on level l when `variable`).
+    smoother_inner_iterations: Relaxation sweeps per smoother application
+        (None: smoothing_steps, stfem_tpu's wiring).
+    relaxation: a fixed omega; 0.0 estimates it.
+    smoothing_range: omega = 2 / (alpha + max_eig), alpha from the range.
+    coarse_grid_smoother_type: "Smoother" (level 0 gets a real smoother,
+        applied 2^max_level times when `variable`) or "Direct" (the dense
+        float32 inverse of the assembled coarsest slab operator).
+    skip_identity_levels: Identity levels contribute nothing.
+    smoothing_eig_cg_n_iterations / eig_safety_factor: the power
+        estimate's sweeps and safety factor (deal.II's 20 and 1.2).
+    eig_exact: converged ARPACK lambda_max (no safety factor) for
+        estimates up to ARNOLDI_MAX_N unknowns; False = the power method.
     level_bf16: run the V-cycle levels in bf16 and store the Vanka
         down/up matrices in bf16 (bench.py's level_bf16 + vanka_bf16); the
         Vanka time-solve factors and the coarse inverse stay float32.
     eig_proxy_cells: > 0 estimates the smoother eigenvalues on a proxy of
         this many cells per axis (same cell size, degree and 2-step tables)
-        for every level larger than it; lambda_max(P A) is h- and
-        S-independent for heat (not for wave: 0 there).
-    eig_exact: converged ARPACK lambda_max (no safety factor) for
-        estimates up to ARNOLDI_MAX_N unknowns; False = deal.II's 20-step
-        power method with the 1.2 safety factor everywhere (the wave
-        bench's choice)."""
-    level_bf16: bool = True
-    eig_proxy_cells: int = 4
+        for every coefficient-free level larger than it; lambda_max(P A) is
+        h- and S-independent for heat (not for wave: 0 there)."""
+    smoothing_range: float = 1.0
+    smoothing_steps: int = 1
+    smoother_inner_iterations: int | None = None
+    relaxation: float = 0.0
+    coarse_grid_smoother_type: str = "Smoother"
+    variable: bool = True
+    skip_identity_levels: bool = False
+    smoothing_eig_cg_n_iterations: int = 20
+    eig_safety_factor: float = 1.2
     eig_exact: bool = True
+    level_bf16: bool = False
+    eig_proxy_cells: int = 0
+
+
+def bench_params(problem: ProblemType = ProblemType.heat,
+                 **overrides) -> GMGParams:
+    """bench.py's heat and wave V-cycles (bench.py:550-571, 886-923): two
+    Relaxation sweeps per smoother application, Identity levels skipped,
+    the Direct coarse solve, bf16 levels, `variable` smoothing for wave
+    only; heat estimates on a 4-cell proxy."""
+    wave = problem == ProblemType.wave
+    kw = dict(smoother_inner_iterations=2, coarse_grid_smoother_type="Direct",
+              variable=wave, skip_identity_levels=True, level_bf16=True,
+              eig_proxy_cells=0 if wave else 4)
+    kw.update(overrides)
+    return GMGParams(**kw)
 
 
 @dataclass
@@ -88,15 +124,22 @@ class GMG:
 
     def __init__(self, levels, transfers, dtype, precondition_sequence,
                  variable: bool = False, skip_identity: bool = True,
-                 coarse_null: torch.Tensor | None = None):
-        """variable: 2^(max_level - l) smoother applications on level l.
-        skip_identity: Identity levels contribute nothing (the heat and
-        wave benches); False visits them (stfem_tpu's GMGParams default).
+                 coarse_null: torch.Tensor | None = None,
+                 smoothing_steps: int = 1, coarse: str = "Direct"):
+        """variable: 2^(max_level - l) x smoothing_steps smoother
+        applications on level l.  skip_identity: Identity levels contribute
+        nothing (the heat and wave benches); False visits them (stfem_tpu's
+        GMGParams default).  coarse: "Direct" assembles the coarsest slab
+        operator and inverts it; "Smoother" applies level 0's smoother (the
+        reference's default coarse solve, stfem_tpu gmg.py:275-291).
         coarse_null: the normalized nullspace vector of a singular coarse
         system (enclosed-flow Stokes: the per-time-block constant
-        pressure).  Given, the coarse solve is the host FP64
-        pseudo-inverse with the nullspace projected out of its defect and
-        solution; None, it is the plain inverse."""
+        pressure).  Given, the Direct solve is the host FP64 pseudo-inverse
+        with the nullspace projected out of its defect and solution; None,
+        it is the plain inverse."""
+        if coarse not in ("Direct", "Smoother"):
+            raise NotImplementedError(f"coarse solve {coarse!r}: only "
+                                      "Direct and Smoother are ported")
         self.levels = levels
         self.transfers = transfers
         self.dtype = dtype
@@ -104,9 +147,11 @@ class GMG:
         self.max_level = len(levels) - 1
         self.variable = variable
         self.skip_identity = skip_identity
+        self.smoothing_steps = smoothing_steps
+        self.coarse = coarse
         self.coarse_null = coarse_null
-        self.coarse_Ainv = self._assemble_direct_coarse(
-            coarse_null is not None)
+        self.coarse_Ainv = (self._assemble_direct_coarse(
+            coarse_null is not None) if coarse == "Direct" else None)
 
     def _assemble_direct_coarse(self, pinv: bool):
         """Dense float32 inverse (or FP64 pseudo-inverse stored in float32)
@@ -140,6 +185,8 @@ class GMG:
         return (flat - (flat @ z)[:, None] * z[None, :]).reshape(x.shape)
 
     def _coarse_solve(self, defect):
+        if self.coarse == "Smoother":
+            return self._apply_smoother(0, defect)
         if self.coarse_null is not None:
             defect = self._project_null(defect)
         d = defect.to(torch.float32).reshape(-1)
@@ -148,26 +195,37 @@ class GMG:
             out = self._project_null(out)
         return out
 
+    def _steps(self, level: int) -> int:
+        m = 2 ** (self.max_level - level) if self.variable else 1
+        return self.smoothing_steps * m
+
+    def _skipped(self, level: int) -> bool:
+        return self.skip_identity and isinstance(self.levels[level].smoother,
+                                                 IdentitySmoother)
+
+    def _apply_smoother(self, level: int, rhs):
+        """Pre-smoothing from a zero guess (MGSmootherPrecondition::apply):
+        u = S(d), then u += S(d - A u) for the level's further steps."""
+        if self._skipped(level):
+            return torch.zeros_like(rhs)
+        lvl = self.levels[level]
+        u = lvl.smoother.vmult(rhs)
+        for _ in range(self._steps(level) - 1):
+            u = u + lvl.smoother.vmult(rhs - lvl.matrix.vmult(u))
+        return u
+
     def _level_v_step(self, level: int, defect):
         if level == 0:
             return self._coarse_solve(defect)
         lvl = self.levels[level]
-        skip = self.skip_identity and isinstance(lvl.smoother,
-                                                 IdentitySmoother)
-        steps = 2 ** (self.max_level - level) if self.variable else 1
-        if skip:
-            u = torch.zeros_like(defect)
-        else:
-            u = lvl.smoother.vmult(defect)
-            for _ in range(steps - 1):
-                u = u + lvl.smoother.vmult(defect - lvl.matrix.vmult(u))
+        u = self._apply_smoother(level, defect)
         r = defect - lvl.matrix.vmult(u)
         dc = self.transfers[level - 1].restrict(r)
         uc = self._level_v_step(level - 1, dc)
         u = u + self.transfers[level - 1].prolongate(uc)
-        if skip:
+        if self._skipped(level):
             return u
-        for _ in range(steps):
+        for _ in range(self._steps(level)):
             u = u + lvl.smoother.vmult(defect - lvl.matrix.vmult(u))
         return u
 
@@ -200,34 +258,48 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                type_: TimeStepType, n_timesteps_at_once: int,
                time_step: float, params: GMGParams | None = None,
                dtype=torch.float32, device="cuda",
-               problem: ProblemType = ProblemType.heat) -> GMG:
+               problem: ProblemType = ProblemType.heat,
+               coarsening_type: CoarseningType = CoarseningType.space_and_time,
+               time_before_space: bool = False,
+               space_time_level_first: bool = False,
+               use_pmg: bool = True, fe_degree_min: int | None = None,
+               n_timesteps_at_once_min: int | None = None,
+               poly_coarsening=PolynomialCoarseningSequenceType.bisect,
+               laplace_coefficient=None) -> GMG:
     """Assemble the STMG hierarchy for the heat or wave cycle with
-    stfem_tpu's ladder conventions (space_and_time coarsening, p-multigrid,
-    bisected space and time degree sequences down to 1 and fe_degree-1
-    resp., one tau level).  Everything lives on `device`; the estimates
-    sweep there."""
+    stfem_tpu's ladder conventions (stfem_tpu/stmg/gmg.py::build_stmg):
+    the space p-sequence bisects space_degree down to 1, the time
+    k-sequence fe_degree down to fe_degree_min, and get_mg_sequence orders
+    the h, p, k and tau levels by the coarsening arguments.  The defaults
+    give the benches' ladder (space_and_time, p-multigrid, one tau
+    level).  laplace_coefficient multiplies every level's stiffness
+    operator; such levels take the GridSumFac route and the cell-local
+    Vanka, and their eigenvalues are estimated on the level itself.
+    Everything lives on `device`; the estimates sweep there."""
     params = params or GMGParams()
     if params.level_bf16:
         dtype = torch.bfloat16
     device = torch.device(device)
-    fe_degree_min = max(fe_degree - 1,
-                        1 if type_ == TimeStepType.CGP else 0)
-    bisect = PolynomialCoarseningSequenceType.bisect
-    coarsening = CoarseningType.space_and_time
+    if fe_degree_min is None:
+        fe_degree_min = max(fe_degree - 1,
+                            1 if type_ == TimeStepType.CGP else 0)
+    if n_timesteps_at_once_min is None:
+        n_timesteps_at_once_min = max(n_timesteps_at_once // 2, 1)
 
     n_sp_lvl = mesh_fine.refinement + 1
     meshes = [StructuredMesh(mesh_fine.subdivisions, mesh_fine.lower,
                              mesh_fine.upper, refinement=r)
               for r in range(n_sp_lvl)]
-    poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min, bisect)
-    poly_space = get_poly_mg_sequence(space_degree, 1, bisect)
+    poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min,
+                                     poly_coarsening)
+    poly_space = get_poly_mg_sequence(space_degree, 1, poly_coarsening)
     mg_type_level = get_mg_sequence(
         n_sp_lvl, poly_time, poly_space, n_timesteps_at_once,
-        max(n_timesteps_at_once // 2, 1), MGType.tau, coarsening, False,
-        True, False)
+        n_timesteps_at_once_min, MGType.tau, coarsening_type,
+        time_before_space, use_pmg, space_time_level_first)
     precond_seq = get_precondition_stmg_types(
-        mg_type_level, coarsening, False, False,
-        SupportedSmoothers.Relaxation)
+        mg_type_level, coarsening_type, time_before_space,
+        space_time_level_first, SupportedSmoothers.Relaxation)
     table_seq = (get_fe_time_weights_wave_sequence
                  if problem == ProblemType.wave
                  else get_fe_time_weights_sequence)
@@ -253,24 +325,66 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
             elif mgt == MGType.tau:
                 na //= 2
     dg = type_ == TimeStepType.DG
+    inner = (params.smoother_inner_iterations
+             if params.smoother_inner_iterations is not None
+             else params.smoothing_steps)
+    direct = params.coarse_grid_smoother_type == "Direct"
 
-    def ops(mesh_, deg_):
+    def ops(mesh_, deg_, coefficient):
         return (LaplaceMassOperator(mesh_, deg_, deg_ + 1, 0.0, 1.0,
-                                    dtype=dtype, device=device),
+                                    dtype=dtype, device=device,
+                                    coefficient=coefficient),
                 LaplaceMassOperator(mesh_, deg_, deg_ + 1, 1.0, 0.0,
                                     dtype=dtype, device=device))
 
+    eig_cache = {}      # cell-local patch eigenbases, one per (K, M)
+
     def vanka(K, M, A, B, n_steps):
+        basis = None
+        if not separable(K, M):
+            if id(K) not in eig_cache:
+                eig_cache[id(K)] = cell_eigenbasis(K, M)
+            basis = eig_cache[id(K)]
         return PreconditionVanka(
-            K, M, A, B, dtype=dtype, n_steps=n_steps,
+            K, M, A, B, dtype=dtype, n_steps=n_steps, eigenbasis=basis,
             storage_dtype=torch.bfloat16 if params.level_bf16 else None)
+
+    def estimate(matrix, v, K, mesh_l, deg_l, Alpha_l, Beta_l, n_steps,
+                 shape):
+        """Relaxation omega from lambda_max(P A), on a proxy when the
+        level is a large coefficient-free one."""
+        m_est, v_est, mask = matrix, v, K.mask_np
+        p = params.eig_proxy_cells
+        if (p > 0 and laplace_coefficient is None
+                and all(int(c) > p for c in mesh_l.cells)):
+            pm = StructuredMesh([p] * mesh_l.dim, [0.0] * mesh_l.dim,
+                                [p * float(h) for h in mesh_l.h])
+            Kp, Mp = ops(pm, deg_l, None)
+            A_e, B_e, s_e = Alpha_l, Beta_l, n_steps
+            two = _two_step_tables(Alpha_l, Beta_l)
+            if two is not None and s_e > 2:
+                (A_e, B_e), s_e = two, 2
+            m_est = SystemMatrix(Kp, Mp, A_e, B_e, precision=None)
+            v_est = vanka(Kp, Mp, A_e, B_e, s_e)
+            mask = Kp.mask_np
+            shape = (np.asarray(A_e).shape[0],) + pm.dof_shape(deg_l)
+        method = ("arnoldi" if params.eig_exact
+                  and int(np.prod(shape)) <= ARNOLDI_MAX_N else "power")
+        info = estimate_eigenvalues(
+            m_est, v_est, shape, mask, device=device, method=method,
+            n_iterations=params.smoothing_eig_cg_n_iterations,
+            safety_factor=params.eig_safety_factor)
+        if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
+            return relaxation_parameters(info, params.smoothing_range)
+        return 1.0
 
     levels, ops_cache = [], {}
     for l in range(n_levels):
         mesh_l = meshes[mesh_idx[l]]
         deg_l = poly_space[spd_idx[l]]
         if (mesh_idx[l], deg_l) not in ops_cache:
-            ops_cache[(mesh_idx[l], deg_l)] = ops(mesh_l, deg_l)
+            ops_cache[(mesh_idx[l], deg_l)] = ops(mesh_l, deg_l,
+                                                  laplace_coefficient)
         K, M = ops_cache[(mesh_idx[l], deg_l)]
         Alpha_l, Beta_l = fetw[l][0], fetw[l][1]
         matrix = SystemMatrix(K, M, Alpha_l, Beta_l, precision=None)
@@ -279,35 +393,20 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
         lvl = _Level(matrix=matrix, smoother=IdentitySmoother(),
                      n_blocks=n_blocks, dof_shape=mesh_l.dof_shape(deg_l))
         levels.append(lvl)
-        # level 0 is solved directly: its smoother would never run
-        if l == 0 or precond_seq[l] == SupportedSmoothers.Identity:
+        # a directly solved level 0 never runs its smoother
+        if (precond_seq[l] == SupportedSmoothers.Identity
+                or (l == 0 and direct)):
             continue
         v = vanka(K, M, Alpha_l, Beta_l, n_at_once[l])
-        omega = 1.0     # degenerate level: every dof constrained
-        if np.sum(K.mask_np) != 0:
-            # the estimate runs on a proxy when the level is larger
-            m_est, v_est, mask = matrix, v, K.mask_np
-            shape = (n_blocks,) + tuple(lvl.dof_shape)
-            p = params.eig_proxy_cells
-            if p > 0 and all(int(c) > p for c in mesh_l.cells):
-                pm = StructuredMesh([p] * mesh_l.dim, [0.0] * mesh_l.dim,
-                                    [p * float(h) for h in mesh_l.h])
-                Kp, Mp = ops(pm, deg_l)
-                A_e, B_e, s_e = Alpha_l, Beta_l, n_at_once[l]
-                two = _two_step_tables(Alpha_l, Beta_l)
-                if two is not None and s_e > 2:
-                    (A_e, B_e), s_e = two, 2
-                m_est = SystemMatrix(Kp, Mp, A_e, B_e, precision=None)
-                v_est = vanka(Kp, Mp, A_e, B_e, s_e)
-                mask = Kp.mask_np
-                shape = (np.asarray(A_e).shape[0],) + pm.dof_shape(deg_l)
-            method = ("arnoldi" if params.eig_exact
-                      and int(np.prod(shape)) <= ARNOLDI_MAX_N else "power")
-            info = estimate_eigenvalues(m_est, v_est, shape, mask,
-                                        device=device, method=method)
-            if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
-                omega = relaxation_parameters(info, 1.0)
-        lvl.smoother = RelaxationSmoother(matrix, v, omega, INNER_SWEEPS)
+        if params.relaxation != 0.0:
+            omega = params.relaxation
+        elif np.sum(K.mask_np) == 0:
+            omega = 1.0     # degenerate level: every dof constrained
+        else:
+            omega = estimate(matrix, v, K, mesh_l, deg_l, Alpha_l, Beta_l,
+                             n_at_once[l],
+                             (n_blocks,) + tuple(lvl.dof_shape))
+        lvl.smoother = RelaxationSmoother(matrix, v, omega, inner)
 
     transfers = []
     for l in range(1, n_levels):
@@ -331,8 +430,10 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                 type_, mgt, rt_hi + 1 if dg else rt_hi,
                 rt_lo + 1 if dg else rt_lo, n_at_once[l], dtype, device))
 
-    gmg = GMG(levels, transfers, dtype, precond_seq,
-              variable=problem == ProblemType.wave)
+    gmg = GMG(levels, transfers, dtype, precond_seq, variable=params.variable,
+              skip_identity=params.skip_identity_levels,
+              smoothing_steps=params.smoothing_steps,
+              coarse=params.coarse_grid_smoother_type)
     gmg.mg_type_level = mg_type_level
     return gmg
 

@@ -1,6 +1,7 @@
-"""Cell-wise Vanka patch smoother, grid fast-diagonalisation mode
-(counterpart of stfem_tpu/stmg/vanka.py::PreconditionVanka with the
-separable eigenbasis and STFEM_GRID_VANKA on, its default).
+"""Cell-wise Vanka patch smoother by fast diagonalisation (counterpart of
+stfem_tpu/stmg/vanka.py::PreconditionVanka, mode "fastdiag"): the grid
+mode for separable levels (STFEM_GRID_VANKA on, stfem_tpu's default) and
+the cell-local mode for levels with a coefficient field.
 
 The space-time patch matrix B_c = Alpha (x) K_loc_c + Beta (x) M_loc_c,
 row-scaled by dof valence (reference include/stmg.h:619-907), is inverted
@@ -15,7 +16,18 @@ solve otherwise, e.g. for the wave tables), and the transposed matrices
 (Wup) apply V_d and the overlap-add scatter.  Both chains of per-axis
 matrices run as kernel K4 (ops/grid_chain.py), always: stfem_tpu's
 STFEM_PALLAS_GRID=1 path, whose rotated factor order (factor_perm) is not
-carried over.  The dense and cell-local patch modes are not ported.
+carried over.
+
+When a coefficient field breaks the separability (separable() below),
+each cell's patch gets its own eigenbasis: the assembled patch matrices
+(band assembly -> patch extraction) are whitened by the Cholesky factor
+of M_loc and diagonalised by one batched eigh, giving a dense V (C, A, A)
+with V^T M_loc V = I, V^T K_loc V = diag(lam).  The apply is gather ->
+valence scaling -> V^T -> the per-position time solve on the flat N = C A
+axis (kernel K1 for multi-step slabs, as in grid mode) -> V -> scatter.
+The factors are built in float64 on the host and stored in the level
+dtype.  The dense reference-style patch inverse (mode "dense") is not
+ported.
 """
 from __future__ import annotations
 
@@ -25,8 +37,41 @@ import torch
 from ..ops.grid_chain import chain_down, chain_up
 from ..ops.gridsumfac import promote
 from ..ops.kronfac import assemble_1d_dense
-from ..ops.spatial import LaplaceMassOperator
+from ..ops.spatial import LaplaceMassOperator, cell_gather, cell_scatter
 from ..ops.time_solve import time_solve
+from ..utils.assembly import band_indices, dof_valence
+from .stokes_level import _band_flat
+
+
+def separable(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator) -> bool:
+    """True when the patch eigenbasis factorizes per axis: no coefficient
+    field and the default Dirichlet masks (stfem_tpu's
+    separable_eigenbasis returns None otherwise)."""
+    default = K_op.mesh.boundary_dof_mask(K_op.degree)
+    return (K_op.coeff is None and M_op.coeff is None
+            and np.array_equal(K_op.mask_np, default)
+            and np.array_equal(M_op.mask_np, default))
+
+
+def cell_eigenbasis(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator):
+    """Per-cell generalized eigenpairs of the assembled patch matrices
+    (K_loc, M_loc), float64 on the host: (lam [C, A], V [C, A, A]) with
+    V^T M_loc V = I and V^T K_loc V = diag(lam) (stfem_tpu's _eigenbasis:
+    Cholesky whitening, then a batched symmetric eigh)."""
+    f64 = torch.float64
+    twins = [LaplaceMassOperator(op.mesh, op.degree, op.n_q,
+                                 op.mass_scaling, op.laplace_scaling,
+                                 dtype=f64, device="cpu", mask=op.mask_np,
+                                 coefficient=op.coefficient)
+             for op in (K_op, M_op)]
+    fidx = torch.as_tensor(band_indices(K_op.cells, K_op.degree))
+    Kp, Mp = (_band_flat(op, fidx)[fidx] for op in twins)    # (C, A, A)
+    L = torch.linalg.cholesky(Mp)
+    eye = torch.eye(Mp.shape[-1], dtype=f64).expand_as(Mp)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    Cm = torch.einsum("cab,cbd,ced->cae", Linv, Kp, Linv)
+    lam, Qm = torch.linalg.eigh(0.5 * (Cm + Cm.transpose(1, 2)))
+    return lam, torch.einsum("cba,cbq->caq", Linv, Qm)
 
 
 def separable_eigenbasis(K_op: LaplaceMassOperator,
@@ -84,7 +129,8 @@ def separable_eigenbasis(K_op: LaplaceMassOperator,
 
 class PreconditionVanka:
     """Additive-Schwarz cell-patch preconditioner over the space-time slab,
-    grid fast-diagonalisation apply.
+    fast-diagonalisation apply: "grid" mode for separable levels, "cell"
+    mode (per-cell dense eigenbasis) otherwise (self.mode).
 
     storage_dtype (e.g. torch.bfloat16) stores the down/up matrices at
     reduced precision; the per-step time-solve factors stay float32 for
@@ -96,7 +142,9 @@ class PreconditionVanka:
 
     def __init__(self, K_op: LaplaceMassOperator, M_op: LaplaceMassOperator,
                  Alpha, Beta, dtype=None, storage_dtype=None,
-                 n_steps: int = 1):
+                 n_steps: int = 1, eigenbasis=None):
+        """eigenbasis: cell_eigenbasis(K_op, M_op), when the caller holds
+        it already (levels that share a mesh share it)."""
         self.K_op = K_op
         self.cells = K_op.cells
         self.k = K_op.degree
@@ -125,6 +173,11 @@ class PreconditionVanka:
             if np.array_equal(A_rec, Alpha) and np.array_equal(B_rec, Beta):
                 self.n_steps = n_steps
 
+        self.mode = "grid" if separable(K_op, M_op) else "cell"
+        if self.mode == "cell":
+            self._build_cell(eigenbasis or cell_eigenbasis(K_op, M_op),
+                             Alpha, Beta, storage_dtype)
+            return
         lam_np, v_axes = separable_eigenbasis(K_op, M_op)
         sdt = storage_dtype if storage_dtype is not None else self.dtype
         fdt = torch.float32 if self.dtype == torch.bfloat16 else self.dtype
@@ -168,8 +221,66 @@ class PreconditionVanka:
             self.TTg = torch.linalg.inv(lam[:, None, None] * A_ + B_
                                         ).permute(1, 2, 0).contiguous()
 
+    def _build_cell(self, eigenbasis, Alpha, Beta, storage_dtype):
+        """The cell-local factors: V (C, A, A), the valence scaling dinv
+        (n_blocks, C, A) in t-major order, and the per-position time
+        factors on the flat N = C A axis -- GinvT (nt, nt, N) and cvecT
+        (nt, N) for multi-step slabs (K1's layout), else the dense
+        per-position inverse TTg (T, T, N)."""
+        cells, k = self.cells, self.k
+        f64, nb = torch.float64, self.n_blocks
+        lam, V = eigenbasis
+        C, A = V.shape[0], V.shape[1]
+        val = torch.as_tensor(dof_valence(cells, k), dtype=f64)
+        vloc = cell_gather(val, cells, k).reshape(C, A)
+        sdt = storage_dtype if storage_dtype is not None else self.dtype
+        fdt = torch.float32 if self.dtype == torch.bfloat16 else self.dtype
+        dev = self.device
+        self.V = V.to(device=dev, dtype=sdt).contiguous()
+        self.dinv = (1.0 / vloc)[None].expand(nb, C, A).to(
+            device=dev, dtype=sdt).contiguous()
+        as_64 = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
+        lam_f = lam.reshape(-1)                                # (N,)
+        self.GinvT = self.cvecT = self.TTg = None
+        if self.n_steps > 1:
+            nt = nb // self.n_steps
+            a_, b_ = as_64(Alpha[:nt, :nt]), as_64(Beta[:nt, :nt])
+            g_, z_ = -as_64(Alpha[nt:2 * nt, nt - 1]), \
+                -as_64(Beta[nt:2 * nt, nt - 1])
+            Ginv = torch.linalg.inv(lam_f[:, None, None] * a_ + b_)
+            cvec = torch.einsum("nij,nj->ni", Ginv,
+                                lam_f[:, None] * g_ + z_)
+            self.GinvT = Ginv.permute(1, 2, 0).to(device=dev, dtype=fdt
+                                                  ).contiguous()
+            self.cvecT = cvec.T.to(device=dev, dtype=fdt).contiguous()
+        else:
+            TT = torch.linalg.inv(lam_f[:, None, None] * as_64(Alpha)
+                                  + as_64(Beta))
+            self.TTg = TT.permute(1, 2, 0).to(device=dev, dtype=fdt
+                                              ).contiguous()
+
+    def _vmult_cell(self, src: torch.Tensor) -> torch.Tensor:
+        nb, cells, k = src.shape[0], self.cells, self.k
+        C, A = self.V.shape[0], self.V.shape[1]
+        r = cell_gather(src.to(self.dtype), cells, k).reshape(nb, C, A)
+        V, r = promote(self.V, r * self.dinv)
+        w = torch.einsum("caq,tca->tcq", V, r).reshape(nb, C * A)
+        if self.n_steps > 1:
+            S = self.n_steps
+            w = time_solve(w.contiguous(), self.GinvT, self.cvecT, S,
+                           nb // S, w.dtype)
+        else:
+            TTg, w = promote(self.TTg, w)
+            w = torch.einsum("tsn,sn->tn", TTg, w)
+        V, w = promote(self.V, w.reshape(nb, C, A))
+        y = torch.einsum("caq,tcq->tca", V, w).to(self.dtype)
+        return cell_scatter(y.reshape((nb,) + tuple(cells) + (k + 1,)
+                                      * self.dim), cells, k)
+
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
         """src: [n_blocks, *dofshape] residual -> additive patch updates."""
+        if self.mode == "cell":
+            return self._vmult_cell(src)
         nb = src.shape[0]
         w = chain_down(src.to(self.dtype), self.Wdn)
         gshape = w.shape[1:]

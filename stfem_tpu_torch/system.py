@@ -1,20 +1,32 @@
 """Space-time slab system operator (Alpha (x) K + Beta (x) M) x
-(counterpart of stfem_tpu/system.py::SystemMatrix, Kronecker route).
+(counterpart of stfem_tpu/system.py::SystemMatrix).
 
-The block vector is one dense tensor [n_blocks, *dofshape]: one Kronecker
-pair (K x, M x) over the whole batch, then the small Alpha/Beta mixing
-matrices over the block axis.  Only the Kronecker route is ported (uniform
-axis-aligned meshes); the GridSumFac and quadrature-middle routes are not.
+The block vector is one dense tensor [n_blocks, *dofshape].  Three routes,
+chosen in stfem_tpu's order (the order it ran on its accelerator):
+  "kron"  when the geometry separates (KronAssembled.supports: no
+          coefficient): one Kronecker pair (K x, M x) over the whole batch,
+          then the small Alpha/Beta mixing matrices over the block axis;
+  "quad"  otherwise for a float64 operator (stfem_tpu's route 3, which its
+          emulated-FP64 operators took): cell_gather, the Alpha/Beta premix
+          as one dense matmul over the block axis, the full-cell-basis
+          quadrature middle (kernel K5, ops/quad_middle.py), cell_scatter;
+  "grid"  otherwise (float32/bf16 levels): ops/gridsumfac.py's per-axis
+          global matmuls with the mixing at the quadrature level.
+A route may also be asked for by name (the tests; chip_smoke.py's
+independent FP64 residual check).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.gridsumfac import promote
+from .ops.gridsumfac import GridSumFac, promote
 from .ops.kronfac import KronAssembled
-from .ops.spatial import LaplaceMassOperator
+from .ops.quad_middle import quad_middle
+from .ops.spatial import LaplaceMassOperator, cell_gather, cell_scatter
 from .utils.precision import full_precision
+
+ROUTES = ("kron", "quad", "grid")
 
 
 class SystemMatrix:
@@ -25,10 +37,12 @@ class SystemMatrix:
 
     precision="highest" (the outer operator and the rhs coupling) runs every
     apply under utils.precision.full_precision: never TF32.  Level
-    operators inside the preconditioner pass precision=None."""
+    operators inside the preconditioner pass precision=None.  route: one
+    of ROUTES, or None for stfem_tpu's choice (module docstring)."""
 
     def __init__(self, K_op: LaplaceMassOperator, M_op: LaplaceMassOperator,
-                 Alpha, Beta, precision: str | None = "highest"):
+                 Alpha, Beta, precision: str | None = "highest",
+                 route: str | None = None):
         assert K_op.mesh is M_op.mesh and K_op.degree == M_op.degree
         self.K, self.M = K_op, M_op
         self.precision = precision
@@ -52,9 +66,38 @@ class SystemMatrix:
                 self._slice_nz = tuple(int(i) for i in nz)
                 self._slice_reduced = SystemMatrix(
                     K_op, M_op, A_np[nz], B_np[nz],
-                    precision="highest" if precision is not None else None)
+                    precision="highest" if precision is not None else None,
+                    route=route)
 
-        self._kron = KronAssembled(K_op, M_op, self.dtype)
+        if route is None:
+            route = ("kron" if KronAssembled.supports(K_op, M_op)
+                     else "quad" if self.dtype == torch.float64 else "grid")
+        if route not in ROUTES:
+            raise ValueError(f"SystemMatrix: unknown route {route!r}")
+        self.route = route
+        self._kron = self._grid = None
+        if route == "kron":
+            self._kron = KronAssembled(K_op, M_op, self.dtype)
+        elif route == "grid":
+            self._grid = GridSumFac(K_op, M_op, self.dtype)
+        else:
+            self._phig, self._phigT, self._w = self._quad_tables(K_op, M_op)
+
+    def _quad_tables(self, K_op, M_op):
+        """Route "quad"'s PhiG (A, (1+dim)Q), its transpose, and W (C,
+        (1+dim)Q): the mass weights, then the stiffness weights with each
+        direction's inverse-Jacobian square (stfem_tpu system.py:137-157)."""
+        dim, C = K_op.dim, K_op.mesh.n_cells
+        Q = K_op.n_q ** dim
+        Phi, Grad = K_op._basis_tensors()
+        PhiG = np.concatenate([Phi] + [Grad[e] for e in range(dim)], axis=1)
+        wK = K_op.weights_np().reshape(C, Q)
+        jinv = 1.0 / K_op.mesh.h
+        W = np.concatenate([M_op.weights_np().reshape(C, Q)]
+                           + [wK * jinv[e] ** 2 for e in range(dim)], axis=1)
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                         dtype=self.dtype, device=self.device)
+        return as_t(PhiG), as_t(PhiG.T), as_t(W)
 
     @staticmethod
     def _detect_step_structure(Anp, Bnp):
@@ -105,6 +148,14 @@ class SystemMatrix:
         return self._apply_impl(x)
 
     def _apply_impl(self, x):
+        if self.route == "grid":
+            y = self._grid.apply(x * self.K.mask,
+                                 lambda v: self._mix(self.Alpha, v),
+                                 lambda v: self._mix(self.Beta, v),
+                                 self.alpha_is_zero, self.beta_is_zero)
+            return self._zeros(x) if y is None else y * self.K.mask
+        if self.route == "quad":
+            return self._apply_quad(x)
         K, M = self.K, self.M
         xin = x * K.mask
         cKK, cKM = K.laplace_scaling, K.mass_scaling
@@ -134,9 +185,27 @@ class SystemMatrix:
                 tb = self._mix(self.Beta, t)
                 y = tb if y is None else y + tb
         if y is None:
-            return torch.zeros((self.n_blocks,) + x.shape[1:],
-                               dtype=self.dtype, device=self.device)
+            return self._zeros(x)
         return y * K.mask
+
+    def _zeros(self, x):
+        return torch.zeros((self.n_blocks,) + x.shape[1:], dtype=self.dtype,
+                           device=self.device)
+
+    def _apply_quad(self, x):
+        """cell_gather -> premix -> K5 -> cell_scatter -> mask."""
+        K = self.K
+        cells, k, dim = K.cells, K.degree, K.dim
+        if x.ndim != dim + 1:
+            raise ValueError("route quad takes [n_blocks, *dofshape]")
+        u = cell_gather(x * K.mask, cells, k).reshape(
+            x.shape[0], K.mesh.n_cells, (k + 1) ** dim)
+        ub = self._mix(self.Beta, u).contiguous()
+        ua = self._mix(self.Alpha, u).contiguous()
+        y = quad_middle(ub, ua, self._phig, self._w, K.n_q ** dim,
+                        self._phigT)
+        y = y.reshape((y.shape[0],) + tuple(cells) + (k + 1,) * dim)
+        return cell_scatter(y, cells, k) * K.mask
 
     def vmult(self, x: torch.Tensor):
         """x: [n_src_blocks, ..., *dofshape] -> [n_blocks, ..., *dofshape]

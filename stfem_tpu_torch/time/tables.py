@@ -38,6 +38,18 @@ def get_time_quad(type_: TimeStepType, r: int) -> tuple[np.ndarray, np.ndarray]:
     raise ValueError(f"unsupported time type {type_}")
 
 
+def get_time_basis(type_: TimeStepType, r: int) -> LagrangeBasis:
+    """Lagrange basis on the time support points (fe_time.cc:163-169)."""
+    return LagrangeBasis(get_time_quad(type_, r)[0])
+
+
+def get_time_evaluation_matrix(basis: LagrangeBasis,
+                               samples_per_interval: int) -> np.ndarray:
+    """E[s, j] = phi_j(s/(S-1)) (reference include/fe_time.h:307-326)."""
+    x = np.arange(samples_per_interval) / (samples_per_interval - 1)
+    return basis.eval_matrix(x)
+
+
 @lru_cache(maxsize=None)
 def get_cg_weights(r: int) -> tuple[np.ndarray, np.ndarray]:
     """CGP(r) Petrov-Galerkin weights on the unit interval.

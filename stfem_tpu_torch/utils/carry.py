@@ -2,9 +2,11 @@
 
 The parity tests extract numpy arrays from the JAX package's objects
 (np.asarray on KronAssembled.M1/A1/Md/Ad, PreconditionVanka.Wdn/Wup/
-GinvT/cvecT, StokesVanka.Binv/Kappa, the GMG level omegas, coarse_Ainv
-and coarse_null) and load them here, so
-that a comparison starts from identical factors and isolates the apply.
+GinvT/cvecT or, in the cell-local mode, V/Ginv/cvec/TTinv/dinv,
+StokesVanka.Binv/Kappa, LaplaceMassOperator.coeff, SystemMatrix._phig/_w,
+GridSumFac.Wa/Wb, the GMG level omegas, coarse_Ainv and coarse_null) and
+load them here, so that a comparison starts from identical factors and
+isolates the apply.  Layouts that differ are converted here.
 The time tables need no loader: both packages build them in NumPy, and
 the tests pass the same arrays to both constructors.  Arrays are cast to
 the dtype and device of the tensor they replace; bf16 arrays should be
@@ -48,6 +50,62 @@ def load_vanka(vanka, Wdn=None, Wup=None, GinvT=None, cvecT=None,
             ref = getattr(vanka, name)
             assert ref is not None and tuple(np.shape(a)) == tuple(ref.shape)
             setattr(vanka, name, _like(a, ref))
+
+
+def load_vanka_cell(vanka, V=None, Ginv=None, cvec=None, TTinv=None,
+                    dinv=None) -> None:
+    """Cell-local PreconditionVanka factors in stfem_tpu's layouts: V (C,
+    A, A), Ginv (C, A, nt, nt) and cvec (C, A, nt) of the multi-step
+    factorization or TTinv (C, A, T, T) of the single-step one, and dinv
+    as (T, C, A) or (C, T*A)."""
+    assert vanka.mode == "cell"
+    C, A = vanka.V.shape[0], vanka.V.shape[1]
+    N, nb = C * A, vanka.n_blocks
+    if V is not None:
+        assert tuple(np.shape(V)) == tuple(vanka.V.shape)
+        vanka.V = _like(V, vanka.V)
+    if Ginv is not None:
+        g = np.asarray(Ginv).reshape(N, *np.shape(Ginv)[2:])
+        vanka.GinvT = _like(np.transpose(g, (1, 2, 0)), vanka.GinvT)
+    if cvec is not None:
+        vanka.cvecT = _like(np.asarray(cvec).reshape(N, -1).T, vanka.cvecT)
+    if TTinv is not None:
+        t = np.asarray(TTinv).reshape(N, nb, nb)
+        vanka.TTg = _like(np.transpose(t, (1, 2, 0)), vanka.TTg)
+    if dinv is not None:
+        d = np.asarray(dinv)
+        if d.shape == (C, nb * A):
+            d = d.reshape(C, nb, A).transpose(1, 0, 2)
+        vanka.dinv = _like(d.reshape(nb, C, A), vanka.dinv)
+
+
+def load_coefficient(op, coeff) -> None:
+    """A LaplaceMassOperator's coefficient table [*cells, *q] (and the
+    folded weights it feeds)."""
+    op.coeff_np = np.asarray(coeff, np.float64)
+    op.coeff = _like(coeff, op.coeff)
+    op.w = op.jxw * op.coeff
+
+
+def load_quad_tables(matrix, PhiG=None, W=None) -> None:
+    """Route "quad" tables of a SystemMatrix: PhiG (A, (1+dim)Q) and W (C,
+    (1+dim)Q)."""
+    assert matrix.route == "quad"
+    if PhiG is not None:
+        matrix._phig = _like(PhiG, matrix._phig)
+        matrix._phigT = _like(np.asarray(PhiG).T, matrix._phigT)
+    if W is not None:
+        matrix._w = _like(W, matrix._w)
+
+
+def load_gridsumfac(matrix, Wb=None, Wa=None) -> None:
+    """Route "grid" weights of a SystemMatrix: the mass grid Wb and the
+    per-direction gradient grids Wa, on the interleaved quadrature grid."""
+    assert matrix.route == "grid"
+    if Wb is not None:
+        matrix._grid.Wb = _like(Wb, matrix._grid.Wb)
+    if Wa is not None:
+        _load_list(matrix._grid.Wa, Wa)
 
 
 def load_stokes_vanka(vanka, Binv=None, Kappa=None) -> None:

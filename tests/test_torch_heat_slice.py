@@ -42,7 +42,7 @@ from stfem_tpu_torch.krylov import (estimate_error_propagator_radius,
 from stfem_tpu_torch.mesh.grid import StructuredMesh
 from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
 from stfem_tpu_torch.stmg import smoother as tsm
-from stfem_tpu_torch.stmg.gmg import GMGParams, build_stmg
+from stfem_tpu_torch.stmg.gmg import bench_params, build_stmg
 from stfem_tpu_torch.system import SystemMatrix
 from stfem_tpu_torch.types import TimeStepType as TT
 from stfem_tpu_torch.utils.carry import load_gmg, load_vanka
@@ -61,7 +61,7 @@ def _jax_params(bf16):
 
 
 def _torch_params(bf16):
-    return GMGParams(level_bf16=bf16, eig_proxy_cells=PROXY)
+    return bench_params(level_bf16=bf16, eig_proxy_cells=PROXY)
 
 
 def build_slice(bf16):
@@ -167,11 +167,12 @@ class _Identity:
         return x
 
 
-def test_relaxation_omega_estimator_exact():
+def _check_estimator_on_jax_proxy(cells, h):
     """The port's estimator (start vector, ARPACK call, omega formula) on
-    the very apply stfem_tpu's estimator sees -- a bench proxy level (2
-    cells, Q4, 2-step dG(2) tables) -- gives stfem_tpu's omega to 1e-6."""
-    jm = JMesh([2, 2, 2], [0.0] * 3, [0.5] * 3)
+    the very apply stfem_tpu's estimator sees -- a bench proxy level of
+    `cells` cells of width h (Q4, 2-step dG(2) tables) -- gives
+    stfem_tpu's omega to 1e-6."""
+    jm = JMesh([cells] * 3, [0.0] * 3, [cells * h] * 3)
     A, B, _, _ = get_fe_time_weights(JT.DG, 2, TAU, 2)
     jK = JOp(jm, 4, 5, 0.0, 1.0, dtype=jnp.float32)
     jM = JOp(jm, 4, 5, 1.0, 0.0, dtype=jnp.float32)
@@ -182,13 +183,28 @@ def test_relaxation_omega_estimator_exact():
                                      jnp.float32, method="arnoldi")
     composite = _JaxApply(lambda v: van.vmult(mat.vmult(v)))
     tinfo = tsm.estimate_eigenvalues(_Identity(), composite, shape,
-                                     jK.mask_np, method="arnoldi")
+                                     jK.mask_np, device="cpu",
+                                     method="arnoldi")
     jo = jsm.relaxation_parameters(jinfo, 1.0)
     to = tsm.relaxation_parameters(tinfo, 1.0)
     assert abs(to / jo - 1.0) <= 1e-6, (jo, to)
     np.testing.assert_array_equal(
-        tsm.initial_guess(shape, jK.mask_np).numpy(),
+        tsm.initial_guess(shape, jK.mask_np, device="cpu").numpy(),
         np.asarray(jsm.initial_guess(shape, jK.mask_np, jnp.float32)))
+    return int(np.prod(shape))
+
+
+def test_relaxation_omega_estimator_exact():
+    """The estimator on the proxy of this file's 4^3 hierarchy (2 cells)."""
+    _check_estimator_on_jax_proxy(PROXY, 1.0 / CELLS)
+
+
+def test_relaxation_omega_estimator_bench_proxy():
+    """The estimator on bench_heat's own proxy (4 cells of its 16^3 fine
+    level): the largest estimate of the bench, which must stay on ARPACK,
+    stfem_tpu's engine (the device Krylov-Schur lands ~2e-4 away)."""
+    n = _check_estimator_on_jax_proxy(4, 1.0 / 16.0)
+    assert n == 29_478 and n <= tsm.ARPACK_HOST_MAX_N
 
 
 def test_vcycle_f32_carried(slice_setup):
@@ -227,7 +243,8 @@ def test_fgmres_fallback_and_radius(slice_setup):
         abstol=1e-30, reltol=1e-6, reorthogonalize=False))(jnp.asarray(b))
     bt = torch.as_tensor(b)
     tres = fgmres(tmat.vmult, bt, torch.zeros_like(bt), tg.vmult,
-                  maxiter=24, reltol=1e-6)
+                  maxiter=24, reltol=1e-6, abstol=1e-30,
+                  reorthogonalize=False)
     assert bool(jres.converged) and tres.converged
     assert int(jres.iterations) == tres.iterations
     x = tres.x.double().numpy()

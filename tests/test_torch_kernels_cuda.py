@@ -10,7 +10,8 @@ output, 2^-8, either side); K2 float64 1e-14 (the same sums in the same
 order up to FMA contraction); K3 float64 1e-14 (the same taps in the same
 order); K4 float32 1e-5 (f32 sums in another order),
 bf16 8e-3 (one bf16 rounding of the f32 sums, either side), float64
-1e-13."""
+1e-13; K5 float64 1e-12 and float32 1e-5 (sums of 64-256 products in
+another order than the plain version's matmuls)."""
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from stfem_tpu_torch.ops.grid_chain import (chain_down, chain_down_reference,
                                             chain_up, chain_up_reference)
 from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
 from stfem_tpu_torch.ops.kronfac import KronAssembled
+from stfem_tpu_torch.ops.quad_middle import quad_middle, quad_middle_reference
 from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
 from stfem_tpu_torch.ops.time_solve import time_solve, time_solve_reference
 
@@ -41,7 +43,8 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)])
-@pytest.mark.parametrize("S,nt,N", [(32, 3, 80 ** 3), (5, 1, 1000),
+@pytest.mark.parametrize("S,nt,N", [(32, 3, 80 ** 3), (8, 3, 4096 * 64),
+                                    (4, 2, 4096 * 64), (5, 1, 1000),
                                     (7, 2, 257), (4, 4, 4097)])
 def test_time_solve_kernel(dev, S, nt, N, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(S * N)
@@ -218,3 +221,62 @@ def test_grid_chain_kernel_rejects(dev):
     big = torch.zeros((1, 200, 200, 200), device=dev)
     with pytest.raises(RuntimeError):        # plane beyond shared memory
         chain_down(big, [torch.zeros((240, 200), device=dev)] * 3)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("T,C,A,Q,dim", [(24, 4096, 64, 64, 3),
+                                         (3, 4096, 64, 64, 3),
+                                         (3, 64, 64, 64, 3),
+                                         (1, 27, 64, 64, 3),
+                                         (17, 100, 27, 27, 3),
+                                         (5, 33, 16, 16, 2)])
+def test_quad_middle_kernel(dev, T, C, A, Q, dim, dtype, tol):
+    g = torch.Generator(device=dev).manual_seed(T * C + A)
+    r = lambda *s: torch.randn(s, generator=g, device=dev, dtype=dtype)
+    ub, ua = r(T, C, A), r(T, C, A)
+    PhiG, W = r(A, (1 + dim) * Q), r(C, (1 + dim) * Q).abs()
+    before = quad_middle.launches
+    got = quad_middle(ub, ua, PhiG, W, Q)
+    torch.cuda.synchronize()
+    assert quad_middle.launches == before + 1 and got.dtype == dtype
+    assert _rel(got, quad_middle_reference(ub, ua, PhiG, W, Q)) <= tol
+
+
+def test_quad_route_on_card(dev):
+    """The route-3 FP64 slab operator (gather, premix, K5, scatter) and
+    its slice form on the card against the same operator on the CPU."""
+    import numpy as np
+
+    from stfem_tpu_torch.problems.coefficient import Coefficient
+    from stfem_tpu_torch.system import SystemMatrix
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+
+    A, B, G, _ = get_fe_time_weights(TimeStepType.DG, 2, 1 / 32, 2)
+    mesh = StructuredMesh([3, 3, 3], [0.0] * 3, [1.0] * 3)
+    coef = Coefficient([3, 3, 3], [0.0] * 3, [1.0] * 3, 0.5)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (A.shape[0],) + mesh.dof_shape(3)))
+    for d in (dev, torch.device("cpu")):
+        ops = [LaplaceMassOperator(mesh, 3, 4, ms, ls, device=d,
+                                   coefficient=c)
+               for ms, ls, c in ((0.0, 1.0, coef), (1.0, 0.0, None))]
+        lhs, rhs = SystemMatrix(*ops, A, B), SystemMatrix(*ops, 0 * G, G)
+        assert lhs.route == rhs.route == "quad"
+        y = (lhs.vmult(x.to(d)).cpu(), rhs.vmult_slice(x[0].to(d)).cpu())
+        if d == dev:
+            got = y
+    assert _rel(got[0], y[0]) <= 1e-12 and _rel(got[1], y[1]) <= 1e-12
+
+
+def test_quad_middle_kernel_rejects(dev):
+    u = torch.zeros((2, 8, 64), device=dev, dtype=torch.float64)
+    P, W = torch.zeros((64, 256), device=dev, dtype=torch.float64), \
+        torch.zeros((8, 256), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        quad_middle(u.half(), u.half(), P.half(), W.half(), 64)
+    with pytest.raises(ValueError):
+        quad_middle(u, u, P, W[:, :200], 64)
+    with pytest.raises(ValueError):
+        quad_middle(u, u.float(), P, W, 64)

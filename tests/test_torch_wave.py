@@ -36,7 +36,7 @@ from stfem_tpu_torch.mesh.grid import StructuredMesh
 from stfem_tpu_torch.ops.kronfac import KronAssembled
 from stfem_tpu_torch.ops.slab_residual import SlabResidual64
 from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
-from stfem_tpu_torch.stmg.gmg import GMGParams, build_stmg
+from stfem_tpu_torch.stmg.gmg import bench_params, build_stmg
 from stfem_tpu_torch.system import SystemMatrix
 from stfem_tpu_torch.time import tables as ttab
 from stfem_tpu_torch.utils.carry import load_gmg, load_vanka
@@ -169,7 +169,8 @@ def _jax_params(bf16):
 
 
 def _torch_params(bf16):
-    return GMGParams(level_bf16=bf16, eig_proxy_cells=0, eig_exact=False)
+    return bench_params(ttypes.ProblemType.wave, level_bf16=bf16,
+                        eig_exact=False)
 
 
 def build_wave_slice(bf16):
