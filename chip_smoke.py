@@ -17,7 +17,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      of the three axes at B=128 x 65^3, k=4 (the heat factors) and at the
      Stokes shape 3 x 17^3, k=2 (the Stokes velocity factors), float64,
      with both times and the time of one dense matmul with the assembled
-     1D matrix (the library yardstick);
+     1D matrix (the library yardstick), each per axis with the kernel's
+     ratio to the matmul and its share of the bound; the kernels line
+     carries the axis where that ratio is worst and every axis's times;
   5. K4 parity: the grid chain (chain_down, then chain_up) vs its plain
      torch version with Vanka-banded matrices at the heat fine level
      (96 x 65^3 <-> 80^3) and the wave fine level (48 x 33^3 <-> 40^3),
@@ -28,7 +30,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (relative 1e-12) and float32 (1e-5), and at its rhs-slice shape
      (T=3) in float64, with both times, the cuBLAS yardstick (the same
      four products as torch.matmul calls with the weight multiply between
-     them) and the bound (FP64 operations at the tensor-core rate);
+     them, in the kernels line as library_ms) and the bound (FP64
+     operations at the tensor-core rate), with the kernel's ratio to
+     cuBLAS and its share of the bound;
   6. small-input checks: the heat and the wave solve at 4^3 cells,
      ntao=4 on the GPU against the same solve on the CPU (plain torch
      kernels) and against the exact solution; the Stokes solve at 4^3
@@ -188,7 +192,7 @@ def main() -> int:
     print(f"# build: {secs:.1f} s -> {cuda_kernels.LIB_PATH}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    report = {}
+    report, extras = {}, {}
 
     # 3. K1 parity at the heat bench's shape and at the coefficient path's
     #    cell-local Vanka shapes (16^3 Q3: N = C A = 262,144; dG(2) levels
@@ -277,21 +281,33 @@ def main() -> int:
             lib = {-3: lambda: A @ xk.reshape(xk.shape[0], xk.shape[1], -1),
                    -2: lambda: A @ xk,
                    -1: lambda: xk @ A.T}[axis]
-            libs.append(_cuda_ms(lib, 5))
+            libs.append(_cuda_ms(lib, 20))
         bound = _bound(2 * _nbytes(xk), xk.numel() * 2.0 * (2 * kr.k + 1),
                        "f64")
+        ratios = [m / lb for m, lb in zip(mss, libs)]
+        # the same bytes moved by a plain copy: what the memory system
+        # gives a read-once, write-once pass on this card
+        copy = _cuda_ms(lambda: torch.empty_like(xk).copy_(xk), 20)
         print(f"# K3 banded_apply f64 {label}, axes (-3, -2, -1): "
               f"max_abs_err {max(errs):.3e} (rel to max {max(rels):.3e}, "
               f"tol 1e-14) kernel {[round(t, 4) for t in mss]} ms plain "
               f"{[round(t, 4) for t in plains]} ms dense matmul "
               f"{[round(t, 4) for t in libs]} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})", flush=True)
+              f"({bound[1]}); kernel / matmul "
+              f"{[round(r, 3) for r in ratios]}, share of bound "
+              f"{[round(bound[0] / m, 3) for m in mss]}; a copy of x "
+              f"{copy:.4f} ms", flush=True)
         if not max(rels) <= 1e-14:
             raise AssertionError("K3 disagrees with its plain version")
         if label.startswith("B=128"):
-            report["banded_apply"] = (max(errs), float(np.mean(mss)),
-                                      float(np.mean(plains)),
-                                      float(np.mean(libs))) + bound
+            # the axis where the kernel fares worst against the matmul
+            # stands in the line; every axis beside it
+            w = int(np.argmax(ratios))
+            report["banded_apply"] = (max(errs), mss[w], plains[w],
+                                      libs[w]) + bound
+            extras["banded_apply"] = {
+                "axis": (-3, -2, -1)[w], "copy_ms": copy, "ms_by_axis": mss,
+                "plain_ms_by_axis": plains, "library_ms_by_axis": libs}
     del x, xs, kron, st_kron
     torch.cuda.empty_cache()
     phase_done("K3")
@@ -374,7 +390,7 @@ def main() -> int:
 
         ms = _cuda_ms(lambda: quad_middle(ub, ua, P, W, Q, PT), 20)
         plain = _cuda_ms(lambda: quad_middle_reference(ub, ua, P, W, Q), 5)
-        lib = _cuda_ms(cublas, 5)
+        lib = _cuda_ms(cublas, 20)
         # read ub, ua, PhiG and W, write y once; 2 flops per multiply-add,
         # A x NQ of them forward and back per block and cell
         bound = _bound(_nbytes(ub, ua, P, W, got),
@@ -382,12 +398,13 @@ def main() -> int:
         print(f"# K5 quad_middle {kind} T={T} C=4096 A=64 NQ=256: "
               f"max_abs_err {err:.3e} (rel to max {rel:.3e}, tol {tol:g}) "
               f"kernel {ms:.4f} ms plain {plain:.4f} ms cuBLAS four "
-              f"products {lib:.4f} ms bound {bound[0]:.4f} ms ({bound[1]})",
-              flush=True)
+              f"products {lib:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"kernel / cuBLAS {ms / lib:.3f}, share of bound "
+              f"{bound[0] / ms:.3f}", flush=True)
         if not rel <= tol:
             raise AssertionError("K5 disagrees with its plain version")
         if T == 24 and dt == torch.float64:     # the outer operator
-            report["quad_middle"] = (err, ms, plain, None) + bound
+            report["quad_middle"] = (err, ms, plain, lib) + bound
         del ub, ua, got
     del qsys
     torch.cuda.empty_cache()
@@ -559,8 +576,11 @@ def main() -> int:
     # slab 0 again: the later slabs' fields have decayed below FGMRES's
     # abstol and take no iteration
     _, t, dt, prev, _, _ = slabs[0]
-    prof = bench_heat.profile_slab(lambda: integ.solve(prev, t, dt), dev)
-    print(f"# coefficient: profile of slab 0 again (untimed): device busy "
+    prof = bench_heat.profile_slab(lambda: integ.solve(prev, t, dt), dev,
+                                   top=1000)
+    k5 = [r for r in prof["top_kernels_ms"] if "quad_middle" in r[0]]
+    print(f"# coefficient: profile of slab 0 again (untimed): K5 "
+          f"{k5} (launches, device ms); device busy "
           f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall "
           f"(share {prof['device_busy_share']:.4f}), "
           f"{prof['n_kernel_launches']} launches, trace stop "
@@ -601,7 +621,7 @@ def main() -> int:
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib})
+                        "library_ms": lib, **extras.get(name, {})})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ with the diagonal storage D[o, i] = A1d[i, i+o-k] of kronfac.to_diags.
 `banded_apply` launches the hand-written CUDA kernel
 (csrc/banded_apply.cu) on CUDA tensors and uses `banded_apply_reference`,
 the plain torch version, only for tensors on the CPU.  There is no
-fallback.  KronAssembled.pair sends every single-output FP64 request
+fallback.  The kernel reads each x from device memory once: it stages
+whole rows (the contiguous axis) or short slabs (the middle axis of a
+65^3 grid) in shared memory, and walks long pencils (the outer axis)
+with the taps in a register window.  KronAssembled.pair sends every
+single-output FP64 request
 through it (M x alone is three applies).
 """
 from __future__ import annotations
@@ -19,6 +23,8 @@ from .cuda_kernels import check, library
 from .kron_pair import banded_axis_apply
 
 __all__ = ["banded_apply", "banded_apply_reference"]
+
+MAX_K = 4          # half-bandwidths the kernel is compiled for (Q1-Q4)
 
 
 def banded_apply_reference(x: torch.Tensor, D: torch.Tensor, axis: int,
@@ -40,6 +46,9 @@ def banded_apply(x: torch.Tensor, D: torch.Tensor, axis: int,
         raise ValueError("banded_apply: x and D must be float64 on the same "
                          "device")
     n = x.shape[axis]
+    if not 0 <= k <= MAX_K:
+        raise ValueError(f"banded_apply: half-bandwidth {k} (kernel takes "
+                         f"0..{MAX_K})")
     if D.shape != (2 * k + 1, n):
         raise ValueError(f"banded_apply: D must be ({2 * k + 1}, {n}), got "
                          f"{tuple(D.shape)}")

@@ -88,8 +88,10 @@ def library() -> ctypes.CDLL:
     lib.stfem_banded_apply.restype = i32
     lib.stfem_grid_chain.argtypes = ([vp] * 6 + [i64] + [i32] * 9 + [vp])
     lib.stfem_grid_chain.restype = i32
-    lib.stfem_quad_middle.argtypes = [vp] * 6 + [i32] * 6 + [vp]
-    lib.stfem_quad_middle.restype = i32
+    lib.stfem_quad_middle_f64.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+    lib.stfem_quad_middle_f64.restype = i32
+    lib.stfem_quad_middle_f32.argtypes = [vp] * 6 + [i32] * 5 + [vp]
+    lib.stfem_quad_middle_f32.restype = i32
     _LIB = lib
     return lib
 

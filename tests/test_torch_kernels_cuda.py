@@ -8,10 +8,11 @@ Tolerances, relative to the plain version's max norm: K1 float32 1e-5
 (f32 sums, FMA contraction), K1 bf16 8e-3 (one bf16 rounding of the
 output, 2^-8, either side); K2 float64 1e-14 (the same sums in the same
 order up to FMA contraction); K3 float64 1e-14 (the same taps in the same
-order); K4 float32 1e-5 (f32 sums in another order),
-bf16 8e-3 (one bf16 rounding of the f32 sums, either side), float64
-1e-13; K5 float64 1e-12 and float32 1e-5 (sums of 64-256 products in
-another order than the plain version's matmuls)."""
+order, on either kernel form); K4 float32 1e-5 (f32 sums in another
+order), bf16 8e-3 (one bf16 rounding of the f32 sums, either side),
+float64 1e-13; K5 float64 1e-12 and float32 1e-5 (sums of 64-500
+products in another order than the plain version's matmuls: FP64 on the
+tensor cores, f32 on the CUDA cores, never TF32)."""
 import pytest
 import torch
 
@@ -97,19 +98,33 @@ def test_kron_pair_kernel_rejects(dev):
         kron_pair(torch.zeros((1, 5, 5, 5), device=dev), D, D, 1)
 
 
-@pytest.mark.parametrize("axis", [-3, -2, -1])
-@pytest.mark.parametrize("shape,k", [((1, 65, 65, 65), 4), ((3, 17, 17, 17), 2),
-                                     ((2, 9, 13, 11), 4), ((1, 5, 7, 9), 2)])
-def test_banded_apply_kernel(dev, shape, k, axis):
-    g = torch.Generator(device=dev).manual_seed(sum(shape) + k)
-    x = torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
-    n = shape[axis]
+def _band_diags(k, n, g, dev):
+    """Random (2k+1, n) diagonals, zero off-range as to_diags stores."""
     D = torch.randn((2 * k + 1, n), generator=g, device=dev,
                     dtype=torch.float64)
-    for o in range(2 * k + 1):          # zero off-range, as to_diags stores
+    for o in range(2 * k + 1):
         lo, hi = max(0, k - o), min(n, n + k - o)
         D[o, :lo] = 0.0
         D[o, hi:] = 0.0
+    return D
+
+
+# the main paths' shapes, then every half-bandwidth on shapes that reach
+# both kernel forms' edges: n < 2k+1, odd n, outer = 1, inner = 2 (a warp
+# spans many pencils), segmented pencils, slabs longer than a tile
+_BANDS = ([((1, 65, 65, 65), 4), ((3, 17, 17, 17), 2), ((2, 9, 13, 11), 4),
+           ((1, 5, 7, 9), 2)]
+          + [(shape, k) for shape in ((1, 3, 2, 5), (2, 9, 5, 33),
+                                      (1, 33, 65, 7), (3, 65, 2, 65))
+             for k in range(5)])
+
+
+@pytest.mark.parametrize("axis", [-3, -2, -1])
+@pytest.mark.parametrize("shape,k", _BANDS)
+def test_banded_apply_kernel(dev, shape, k, axis):
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + k)
+    x = torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+    D = _band_diags(k, shape[axis], g, dev)
     before = banded_apply.launches
     y = banded_apply(x, D, axis, k)
     torch.cuda.synchronize()
@@ -145,6 +160,11 @@ def test_banded_apply_kernel_rejects(dev):
     with pytest.raises(ValueError):
         banded_apply(torch.zeros((2, 5, 6), device=dev,
                                  dtype=torch.float64), D, -1, 1)
+    with pytest.raises(ValueError):          # k beyond the compiled bands
+        banded_apply(torch.zeros((2, 11, 11), device=dev,
+                                 dtype=torch.float64),
+                     torch.zeros((11, 11), device=dev, dtype=torch.float64),
+                     -1, 5)
 
 
 def _vanka_pattern(nc, k, g, dev, up=False):
@@ -223,14 +243,19 @@ def test_grid_chain_kernel_rejects(dev):
         chain_down(big, [torch.zeros((240, 200), device=dev)] * 3)
 
 
+# the tp_01 shapes (outer operator T=24, rhs slice T=3), small and ragged
+# ones, then the FP64 tile plan's edges: C = 101 is a multiple of no
+# tile's cell count, T = 9 splits into 5 + 4 blocks, A = 16, 27 and 125
+# pad PhiG's rows (and Q its column groups)
+_QUADS = ([(24, 4096, 64, 64, 3), (3, 4096, 64, 64, 3), (3, 64, 64, 64, 3),
+           (1, 27, 64, 64, 3), (17, 100, 27, 27, 3), (5, 33, 16, 16, 2)]
+          + [(T, 101, A, A, dim) for T in (1, 3, 5, 8, 9, 24)
+             for A, dim in ((16, 2), (27, 3), (64, 3), (125, 3))])
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("T,C,A,Q,dim", [(24, 4096, 64, 64, 3),
-                                         (3, 4096, 64, 64, 3),
-                                         (3, 64, 64, 64, 3),
-                                         (1, 27, 64, 64, 3),
-                                         (17, 100, 27, 27, 3),
-                                         (5, 33, 16, 16, 2)])
+@pytest.mark.parametrize("T,C,A,Q,dim", _QUADS)
 def test_quad_middle_kernel(dev, T, C, A, Q, dim, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(T * C + A)
     r = lambda *s: torch.randn(s, generator=g, device=dev, dtype=dtype)
@@ -240,6 +265,7 @@ def test_quad_middle_kernel(dev, T, C, A, Q, dim, dtype, tol):
     got = quad_middle(ub, ua, PhiG, W, Q)
     torch.cuda.synchronize()
     assert quad_middle.launches == before + 1 and got.dtype == dtype
+    assert got.shape == (T, C, A)
     assert _rel(got, quad_middle_reference(ub, ua, PhiG, W, Q)) <= tol
 
 
@@ -280,3 +306,9 @@ def test_quad_middle_kernel_rejects(dev):
         quad_middle(u, u, P, W[:, :200], 64)
     with pytest.raises(ValueError):
         quad_middle(u, u.float(), P, W, 64)
+    big = torch.zeros((2, 8, 136), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):          # A beyond the FP64 tile
+        quad_middle(big, big, torch.zeros((136, 512), device=dev,
+                                          dtype=torch.float64),
+                    torch.zeros((8, 512), device=dev, dtype=torch.float64),
+                    128)
