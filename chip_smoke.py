@@ -12,7 +12,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      path's cell-local Vanka shapes (S=8, nt=3 and S=4, nt=2 at
      N=262,144), f32, with both times;
   4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
-     B=128 in float64, with both times;
+     B=128 in float64, with both times and the share of the bound;
   4b. K3 parity: banded_apply kernel vs its plain torch version along each
      of the three axes at B=128 x 65^3, k=4 (the heat factors) and at the
      Stokes shape 3 x 17^3, k=2 (the Stokes velocity factors), float64,
@@ -21,9 +21,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      ratio to the matmul and its share of the bound; the kernels line
      carries the axis where that ratio is worst and every axis's times;
   5. K4 parity: the grid chain (chain_down, then chain_up) vs its plain
-     torch version with Vanka-banded matrices at the heat fine level
+     torch version with Vanka cell-blocked matrices at the heat fine level
      (96 x 65^3 <-> 80^3) and the wave fine level (48 x 33^3 <-> 40^3),
-     bf16 and f32, with both times;
+     bf16 and f32, with both times, the einsum of the same dense matrices
+     (the library yardstick; library_ms in the kernels line) and the
+     kernel's ratio to it and share of the bound;
   5b. K5 parity: the quadrature middle vs its plain torch version at the
      coefficient path's outer-operator shape (T=24, C=4096, A=64, PhiG
      64 x 256 and W 4096 x 256 from the 16^3 Q3 route-3 tables), float64
@@ -43,7 +45,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
   7. heat main path: bench_heat at its defaults (16^3 cells, 32 steps per
      slab) for the probe plus 2 timed slabs and one profiled, untimed
      slab; every slab must reach a TRUE relative residual <= 1e-8, and
-     K1, K2 and K4 (both chains) must each launch in this run;
+     K1, K2 and K4 (both chains) must each launch in this run; the
+     profiled slab's launches and device ms of K4, K2, K1 and K3;
   8. wave main path: bench_wave at its defaults (8^3 cells, 16 steps per
      slab) for the probe plus 2 timed slabs and one profiled, untimed
      slab; every slab must reach TRUE <= 1e-8, the probe's recovered v
@@ -246,16 +249,17 @@ def main() -> int:
     ms = _cuda_ms(lambda: kron_pair(x, kron.Md, kron.Ad, kron.k), 10)
     plain = _cuda_ms(lambda: kron_pair_reference(x, kron.Md, kron.Ad,
                                                  kron.k), 3)
-    print(f"# K2 kron_pair f64 B=128 n=65 k=4: max_abs_err {err:.3e} "
-          f"(rel to max {rel:.3e}, tol 1e-14) kernel {ms:.3f} ms plain "
-          f"{plain:.3f} ms", flush=True)
-    if not rel <= 1e-14:
-        raise AssertionError("K2 disagrees with its plain version")
     # read x, write K x and M x once; per element 2(2k+1) flops for each
     # of the first axis' two tap sets and of each later axis' three
     k = kron.k
-    report["kron_pair"] = (err, ms, plain, None) + _bound(
-        3 * _nbytes(x), x.numel() * 16.0 * (2 * k + 1), "f64")
+    bound = _bound(3 * _nbytes(x), x.numel() * 16.0 * (2 * k + 1), "f64")
+    print(f"# K2 kron_pair f64 B=128 n=65 k=4: max_abs_err {err:.3e} "
+          f"(rel to max {rel:.3e}, tol 1e-14) kernel {ms:.4f} ms plain "
+          f"{plain:.3f} ms bound {bound[0]:.4f} ms ({bound[1]}); share of "
+          f"bound {bound[0] / ms:.3f}", flush=True)
+    if not rel <= 1e-14:
+        raise AssertionError("K2 disagrees with its plain version")
+    report["kron_pair"] = (err, ms, plain, None) + bound
     phase_done("K1, K2")
 
     # 4b. K3 parity along every axis, at the large shape (the heat factors)
@@ -313,17 +317,18 @@ def main() -> int:
     phase_done("K3")
 
     # 5. K4 parity at the Vanka fine levels of both main paths: the down
-    #    chain, then the up chain on its output
+    #    chain, then the up chain on its output, with the einsum of the
+    #    same dense matrices as the library yardstick
     for label, nb, nc in (("heat", 96, 16), ("wave", 48, 8)):
-        k, n = 4, nc * 4 + 1
+        k, n, cells = 4, nc * 4 + 1, (nc,) * 3
         for dt, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
             dn = [_vanka_band(nc, k, gen, dev).to(dt) for _ in range(3)]
             up = [_vanka_band(nc, k, gen, dev).T.contiguous().to(dt)
                   for _ in range(3)]
             x = torch.randn((nb, n, n, n), generator=gen, device=dev).to(dt)
-            w = chain_down(x, dn)
+            w = chain_down(x, dn, cells=cells, k=k)
             wr = chain_down_reference(x, dn)
-            y = chain_up(w, up)
+            y = chain_up(w, up, cells=cells, k=k)
             yr = chain_up_reference(w, up)
             err = max(float((w.float() - wr.float()).abs().max()),
                       float((y.float() - yr.float()).abs().max()))
@@ -332,24 +337,31 @@ def main() -> int:
                       float((y.float() - yr.float()).abs().max()
                             / yr.float().abs().max()))
             del wr, yr
-            ms = (_cuda_ms(lambda: chain_down(x, dn), 10)
-                  + _cuda_ms(lambda: chain_up(w, up), 10))
+            ms = (_cuda_ms(lambda: chain_down(x, dn, cells=cells, k=k), 20)
+                  + _cuda_ms(lambda: chain_up(w, up, cells=cells, k=k), 20))
             plain = (_cuda_ms(lambda: chain_down_reference(x, dn), 3)
                      + _cuda_ms(lambda: chain_up_reference(w, up), 3))
+            lib = (_cuda_ms(lambda: torch.einsum("bijk,ai,cj,dk->bacd", x,
+                                                 *dn), 5)
+                   + _cuda_ms(lambda: torch.einsum("bijk,ai,cj,dk->bacd", w,
+                                                   *up), 5))
+            # down: read x, write w; up: read w, write y; per output
+            # element k+1 banded taps on each of the three axes
+            nq = nc * (k + 1)
+            flops = 2.0 * (k + 1) * nb * (
+                nq * n * n + nq * nq * n + nq ** 3) * 2
+            bound = _bound(2 * _nbytes(w) + _nbytes(x, y), flops, "f32")
             print(f"# K4 grid_chain {label} fine {nb} x {n}^3 <-> "
-                  f"{nc * (k + 1)}^3 {str(dt)[6:]}: max_abs_err {err:.3e} "
+                  f"{nq}^3 {str(dt)[6:]}: max_abs_err {err:.3e} "
                   f"(rel to max {rel:.3e}, tol {tol:g}) kernel down+up "
-                  f"{ms:.4f} ms plain {plain:.4f} ms", flush=True)
+                  f"{ms:.4f} ms plain {plain:.4f} ms einsum {lib:.4f} ms "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}); kernel / einsum "
+                  f"{ms / lib:.3f}, share of bound {bound[0] / ms:.3f}",
+                  flush=True)
             if not rel <= tol:
                 raise AssertionError("K4 disagrees with its plain version")
             if dt == torch.bfloat16 and label == "heat":
-                # down: read x, write w; up: read w, write y; per output
-                # element k+1 banded taps on each of the three axes
-                nq = nc * (k + 1)
-                flops = 2.0 * (k + 1) * nb * (
-                    nq * n * n + nq * nq * n + nq ** 3) * 2
-                report["grid_chain"] = (err, ms, plain, None) + _bound(
-                    2 * _nbytes(w) + _nbytes(x, y), flops, "f32")
+                report["grid_chain"] = (err, ms, plain, lib) + bound
             del x, w, y
     torch.cuda.empty_cache()
 
@@ -502,7 +514,11 @@ def main() -> int:
         wall, cpu = time.time() - wall0, time.process_time() - cpu0
         prof = info.pop("profile")
         print(json.dumps(info), flush=True)
-        print(f"# {label}: profile of one more slab (untimed): device busy "
+        port = prof["port_kernels_ms"]
+        print(f"# {label}: profile of one more slab (untimed): K4 "
+              f"{port['grid_chain']}, K2 {port['kron_pair']}, K1 "
+              f"{port['time_solve']}, K3 {port['banded_apply']} (launches, "
+              f"device ms); device busy "
               f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s "
               f"wall (share {prof['device_busy_share']:.4f}), "
               f"{prof['n_kernel_launches']} launches, trace stop "

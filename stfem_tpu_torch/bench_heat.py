@@ -198,10 +198,18 @@ def run(cells: int = 16, ntao: int = 32, n_slabs: int = 10,
     return info, x64
 
 
+# name fragments of the port's own kernels (csrc/*.cu), K1-K5
+PORT_KERNELS = {"time_solve": ("time_solve",), "kron_pair": ("kron_pair",),
+                "banded_apply": ("banded_",),
+                "grid_chain": ("grid_chain_",),
+                "quad_middle": ("quad_middle",)}
+
+
 def profile_slab(fn, device, top: int = 12) -> dict:
     """Run fn() once under torch.profiler: wall time, summed device time
     (one stream, so kernels do not overlap), the kernels with the most
-    device time and the torch ops whose kernels take the most.
+    device time, the torch ops whose kernels take the most, and each of
+    the port's kernels' launches and device ms (`port_kernels_ms`).
 
     The summary reads the trace's raw events and joins each kernel to the
     op that launched it by correlation id.  torch's key_averages() builds
@@ -245,8 +253,14 @@ def profile_slab(fn, device, top: int = 12) -> dict:
                         reverse=True)[:top]
         return [[name[:70], n, us * 1e-3] for name, (n, us) in ranked]
 
+    port = {name: [sum(n for k, (n, _) in kernels.items()
+                       if any(f in k for f in frags)),
+                   sum(us for k, (_, us) in kernels.items()
+                       if any(f in k for f in frags)) * 1e-3]
+            for name, frags in PORT_KERNELS.items()}
     busy = busy_us * 1e-6
     return {"wall_s": wall, "device_busy_s": busy,
+            "port_kernels_ms": port,
             "device_busy_share": busy / wall if wall > 0 else 0.0,
             "n_kernel_launches": len(device_events),
             "top_kernels_ms": rows(kernels), "top_ops_ms": rows(ops),

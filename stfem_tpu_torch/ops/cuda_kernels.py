@@ -74,25 +74,27 @@ def build(force: bool = False, verbose: bool = False) -> tuple[float, str]:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    build()
-    lib = ctypes.CDLL(str(LIB_PATH))
+    if _LIB is None:
+        build()
+        _LIB = bind(ctypes.CDLL(str(LIB_PATH)))
+    return _LIB
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the entry points that lib has."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.stfem_time_solve.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, vp]
-    lib.stfem_time_solve.restype = i32
-    lib.stfem_kron_pair.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32,
-                                    i32, i32, i32, i32, vp]
-    lib.stfem_kron_pair.restype = i32
-    lib.stfem_banded_apply.argtypes = [vp, vp, vp, i64, i32, i64, i32, vp]
-    lib.stfem_banded_apply.restype = i32
-    lib.stfem_grid_chain.argtypes = ([vp] * 6 + [i64] + [i32] * 9 + [vp])
-    lib.stfem_grid_chain.restype = i32
-    lib.stfem_quad_middle_f64.argtypes = [vp] * 5 + [i32] * 8 + [vp]
-    lib.stfem_quad_middle_f64.restype = i32
-    lib.stfem_quad_middle_f32.argtypes = [vp] * 6 + [i32] * 5 + [vp]
-    lib.stfem_quad_middle_f32.restype = i32
-    _LIB = lib
+    i3 = ctypes.POINTER(i32)
+    for name, args in (
+            ("stfem_time_solve", [vp, vp, vp, vp, i32, i32, i64, i32, vp]),
+            ("stfem_kron_pair", [vp] * 5 + [i64] + [i32] * 7 + [vp]),
+            ("stfem_banded_apply", [vp, vp, vp, i64, i32, i64, i32, vp]),
+            ("stfem_grid_chain",
+             [i32] + [vp] * 5 + [i64] + [i3] * 3 + [i32] * 5 + [vp]),
+            ("stfem_quad_middle_f64", [vp] * 5 + [i32] * 8 + [vp]),
+            ("stfem_quad_middle_f32", [vp] * 6 + [i32] * 5 + [vp])):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, i32
     return lib
 
 

@@ -8,9 +8,12 @@ as per-axis banded (2k+1)-offset applies with the shared mass prefix of
 stfem_tpu/ops/kronfac.py::KronAssembled.pair.  The factors are diagonal
 storage D[o, i] = A1d[i, i+o-k] (zero off-range, kronfac._to_diags).
 
-`kron_pair` launches the hand-written CUDA kernel (csrc/kron_pair.cu) on
-CUDA tensors (3D grids, float64) and uses `kron_pair_reference`, the plain
-torch version, only for tensors on the CPU.  There is no fallback.
+`kron_pair` launches the hand-written CUDA kernel (csrc/kron_pair.cu: one
+fused pass over the three axes, a sliding window over axis 0) on CUDA
+tensors (3D grids, float64, k <= 4, n2 <= 384) and uses
+`kron_pair_reference`, the plain torch version, only for tensors on the
+CPU.  There is no fallback.  `tile_plan` cuts axis 1 into the kernel's
+row tiles.
 """
 from __future__ import annotations
 
@@ -18,7 +21,10 @@ import torch
 
 from .cuda_kernels import check, library
 
-__all__ = ["banded_axis_apply", "kron_pair", "kron_pair_reference"]
+__all__ = ["banded_axis_apply", "kernel_args", "kron_pair",
+           "kron_pair_reference", "tile_plan"]
+
+MAX_THREADS, MAX_K = 384, 4     # csrc/kron_pair.cu's limits
 
 
 def banded_axis_apply(D: torch.Tensor, x: torch.Tensor, axis: int, k: int):
@@ -57,12 +63,22 @@ def _stack_diags(D, nmax: int) -> torch.Tensor:
                         for Dd in D]).contiguous()
 
 
-def kron_pair(x: torch.Tensor, Dm, Da, k: int):
-    """(K x, M x) for x: [..., n0, n1, n2]."""
-    if x.device.type == "cpu":
-        return kron_pair_reference(x, Dm, Da, k)
-    if x.device.type != "cuda":
-        raise ValueError(f"kron_pair: unsupported device {x.device}")
+def tile_plan(n1: int, n2: int):
+    """(rows of axis 1 per CTA, tiles, threads per CTA) of the kernel: one
+    thread per (row, axis-2) position, at most MAX_THREADS, the rows spread
+    evenly over the tiles (the last tile may hold fewer)."""
+    if not 1 <= n2 <= MAX_THREADS:
+        raise ValueError(f"kron_pair: axis 2 of length {n2} exceeds the "
+                         f"kernel's {MAX_THREADS} threads")
+    n_tiles = -(-n1 // max(1, min(n1, MAX_THREADS // n2)))
+    t = -(-n1 // n_tiles)
+    return t, n_tiles, 32 * -(-t * n2 // 32)
+
+
+def kernel_args(x: torch.Tensor, Dm, Da, k: int):
+    """Check what the kernel takes and prepare its call: (the arguments of
+    stfem_kron_pair but the stream, (K x, M x) to be filled, the kept-alive
+    diagonal tables).  Raises ValueError."""
     if len(Dm) != 3 or len(Da) != 3 or x.ndim < 3:
         raise ValueError("kron_pair: the kernel takes 3D grids")
     if x.dtype != torch.float64 or any(
@@ -70,6 +86,8 @@ def kron_pair(x: torch.Tensor, Dm, Da, k: int):
             for D in list(Dm) + list(Da)):
         raise ValueError("kron_pair: x and factors must be float64 on the "
                          "same device")
+    if not 0 <= k <= MAX_K:
+        raise ValueError(f"kron_pair: k = {k} beyond the kernel's {MAX_K}")
     n0, n1, n2 = x.shape[-3:]
     for d, n in enumerate((n0, n1, n2)):
         if Dm[d].shape != (2 * k + 1, n) or Da[d].shape != (2 * k + 1, n):
@@ -79,14 +97,25 @@ def kron_pair(x: torch.Tensor, Dm, Da, k: int):
     nmax = max(n0, n1, n2)
     dm, da = _stack_diags(Dm, nmax), _stack_diags(Da, nmax)
     B = x.numel() // (n0 * n1 * n2)
-    v1, k1, v2, k2 = (torch.empty_like(x) for _ in range(4))
+    tile1, _, threads = tile_plan(n1, n2)
+    kx, mx = torch.empty_like(x), torch.empty_like(x)
+    args = (x.data_ptr(), dm.data_ptr(), da.data_ptr(), kx.data_ptr(),
+            mx.data_ptr(), B, n0, n1, n2, nmax, k, tile1, threads)
+    return args, (kx, mx), (dm, da)
+
+
+def kron_pair(x: torch.Tensor, Dm, Da, k: int):
+    """(K x, M x) for x: [..., n0, n1, n2]."""
+    if x.device.type == "cpu":
+        return kron_pair_reference(x, Dm, Da, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"kron_pair: unsupported device {x.device}")
+    args, (kx, mx), _tables = kernel_args(x, Dm, Da, k)
     code = library().stfem_kron_pair(
-        x.data_ptr(), dm.data_ptr(), da.data_ptr(), v1.data_ptr(),
-        k1.data_ptr(), v2.data_ptr(), k2.data_ptr(), B, n0, n1, n2, nmax, k,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *args, torch.cuda.current_stream(x.device).cuda_stream)
     check(code, "kron_pair")
     kron_pair.launches += 1
-    return k1, v1
+    return kx, mx
 
 
 kron_pair.launches = 0

@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.grid_chain import chain_down, chain_up
+from ..ops.grid_chain import chain_down, chain_up, check_cell_blocks
 from ..ops.gridsumfac import promote
 from ..ops.kronfac import assemble_1d_dense
 from ..ops.spatial import LaplaceMassOperator, cell_gather, cell_scatter
@@ -198,6 +198,7 @@ class PreconditionVanka:
                 up[colsg, rows] += Vd[c]
             self.Wdn.append(as_t(dn, sdt))
             self.Wup.append(as_t(up, sdt))
+        self.check_blocks()
         # eigenvalues in the flat interleaved (c1,a1,c2,a2,...) order of
         # the down-applied grid
         perm = []
@@ -220,6 +221,13 @@ class PreconditionVanka:
             B_ = as_t(Beta, self.dtype).to(fdt)
             self.TTg = torch.linalg.inv(lam[:, None, None] * A_ + B_
                                         ).permute(1, 2, 0).contiguous()
+
+    def check_blocks(self) -> None:
+        """The cell-blocked pattern of Wdn / Wup that K4 relies on (cell c
+        of axis d maps dofs c k .. c k + k to rows c (k+1) ..), checked once
+        per matrix; raises ValueError."""
+        check_cell_blocks(self.Wdn, self.cells, self.k)
+        check_cell_blocks(self.Wup, self.cells, self.k, up=True)
 
     def _build_cell(self, eigenbasis, Alpha, Beta, storage_dtype):
         """The cell-local factors: V (C, A, A), the valence scaling dinv
@@ -282,7 +290,8 @@ class PreconditionVanka:
         if self.mode == "cell":
             return self._vmult_cell(src)
         nb = src.shape[0]
-        w = chain_down(src.to(self.dtype), self.Wdn)
+        w = chain_down(src.to(self.dtype), self.Wdn, cells=self.cells,
+                       k=self.k)
         gshape = w.shape[1:]
         N = int(np.prod(gshape))
         wf = w.reshape(nb, N)
@@ -294,4 +303,4 @@ class PreconditionVanka:
             w = torch.einsum("tsn,sn->tn", TTg, wf)
         # back to the working dtype before the up chain
         w = w.reshape((nb,) + tuple(gshape)).to(self.dtype)
-        return chain_up(w, self.Wup)
+        return chain_up(w, self.Wup, cells=self.cells, k=self.k)

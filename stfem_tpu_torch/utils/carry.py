@@ -40,11 +40,14 @@ def load_kron(kron, M1=None, A1=None, Md=None, Ad=None) -> None:
 
 def load_vanka(vanka, Wdn=None, Wup=None, GinvT=None, cvecT=None,
                TTg=None) -> None:
-    """PreconditionVanka grid-mode factors."""
+    """PreconditionVanka grid-mode factors.  Wdn / Wup must keep the
+    cell-blocked pattern that K4 relies on (checked here; ValueError)."""
     if Wdn is not None:
         _load_list(vanka.Wdn, Wdn)
     if Wup is not None:
         _load_list(vanka.Wup, Wup)
+    if Wdn is not None or Wup is not None:
+        vanka.check_blocks()
     for name, a in (("GinvT", GinvT), ("cvecT", cvecT), ("TTg", TTg)):
         if a is not None:
             ref = getattr(vanka, name)

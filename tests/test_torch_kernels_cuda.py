@@ -20,7 +20,8 @@ from stfem_tpu_torch.mesh.grid import StructuredMesh
 from stfem_tpu_torch.ops.banded_apply import (banded_apply,
                                               banded_apply_reference)
 from stfem_tpu_torch.ops.grid_chain import (chain_down, chain_down_reference,
-                                            chain_up, chain_up_reference)
+                                            chain_reference, chain_up,
+                                            chain_up_reference)
 from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
 from stfem_tpu_torch.ops.kronfac import KronAssembled
 from stfem_tpu_torch.ops.quad_middle import quad_middle, quad_middle_reference
@@ -67,8 +68,15 @@ def test_time_solve_kernel_rejects(dev):
         time_solve(w, G, c, 2, 3, torch.float64)
 
 
+# the bench shape, ragged and non-cubic grids, n < 2k+1 (one Q4 cell:
+# n = 5), the Stokes velocity grid (n = 17, k = 2), B = 1, an axis-1
+# tile plan with a short last tile (n1 = 33 in tiles of 11)
 @pytest.mark.parametrize("cells,k,B", [((16, 16, 16), 4, 8), ((2, 3, 4), 2, 3),
-                                       ((3, 3, 3), 4, 1)])
+                                       ((3, 3, 3), 4, 1), ((1, 1, 1), 4, 2),
+                                       ((1, 2, 1), 3, 1), ((8, 8, 8), 2, 3),
+                                       ((8, 8, 8), 2, 1), ((4, 2, 3), 4, 2),
+                                       ((2, 8, 5), 4, 2), ((3, 4, 2), 1, 5),
+                                       ((5, 3, 4), 1, 1)])
 def test_kron_pair_kernel(dev, cells, k, B):
     mesh = StructuredMesh(list(cells), [0.0] * 3, [1.0] * 3)
     ops = [LaplaceMassOperator(mesh, k, k + 1, m, l, dtype=torch.float64,
@@ -96,6 +104,15 @@ def test_kron_pair_kernel_rejects(dev):
     D = [torch.zeros((3, 5), device=dev, dtype=torch.float64)] * 3
     with pytest.raises(ValueError):
         kron_pair(torch.zeros((1, 5, 5, 5), device=dev), D, D, 1)
+    D5 = [torch.zeros((11, 5), device=dev, dtype=torch.float64)] * 3
+    with pytest.raises(ValueError):          # k beyond the compiled bands
+        kron_pair(torch.zeros((1, 5, 5, 5), device=dev, dtype=torch.float64),
+                  D5, D5, 5)
+    wide = [torch.zeros((3, n), device=dev, dtype=torch.float64)
+            for n in (2, 2, 400)]
+    with pytest.raises(ValueError):          # axis 2 beyond the threads
+        kron_pair(torch.zeros((1, 2, 2, 400), device=dev,
+                              dtype=torch.float64), wide, wide, 1)
 
 
 def _band_diags(k, n, g, dev):
@@ -167,14 +184,14 @@ def test_banded_apply_kernel_rejects(dev):
                      -1, 5)
 
 
-def _vanka_pattern(nc, k, g, dev, up=False):
-    """A random matrix with the Vanka down (q x n) or up (n x q) band: row
-    c(k+1)+a of the down matrix reads dofs ck..ck+k."""
-    n, q = nc * k + 1, nc * (k + 1)
+def _blocked(nc, k, r, g, dev, up=False):
+    """A random matrix with the cell-blocked down (q x n) or up (n x q)
+    pattern: row c r + a of the down matrix reads dofs c k .. c k + k."""
+    n, q = nc * k + 1, nc * r
     m = torch.zeros((q, n), device=dev)
     for c in range(nc):
-        m[c * (k + 1):(c + 1) * (k + 1), c * k:c * k + k + 1] = torch.randn(
-            (k + 1, k + 1), generator=g, device=dev)
+        m[c * r:(c + 1) * r, c * k:c * k + k + 1] = torch.randn(
+            (r, k + 1), generator=g, device=dev)
     return m.T.contiguous() if up else m
 
 
@@ -188,14 +205,14 @@ _LEVELS = [(96, 16, 4), (48, 8, 4), (12, 1, 2)]
 @pytest.mark.parametrize("nb,nc,k", _LEVELS)
 def test_grid_chain_kernel_vanka_levels(dev, nb, nc, k, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(nb + nc)
-    dn = [_vanka_pattern(nc, k, g, dev).to(dtype) for _ in range(3)]
-    upm = [_vanka_pattern(nc, k, g, dev, up=True).to(dtype)
+    dn = [_blocked(nc, k, k + 1, g, dev).to(dtype) for _ in range(3)]
+    upm = [_blocked(nc, k, k + 1, g, dev, up=True).to(dtype)
            for _ in range(3)]
-    n = nc * k + 1
+    n, cells = nc * k + 1, (nc,) * 3
     x = torch.randn((nb, n, n, n), generator=g, device=dev).to(dtype)
     before = (chain_down.launches, chain_up.launches)
-    w = chain_down(x, dn)
-    y = chain_up(w, upm)
+    w = chain_down(x, dn, cells=cells, k=k)
+    y = chain_up(w, upm, cells=cells, k=k)
     torch.cuda.synchronize()
     assert (chain_down.launches, chain_up.launches) == (before[0] + 1,
                                                         before[1] + 1)
@@ -205,42 +222,69 @@ def test_grid_chain_kernel_vanka_levels(dev, nb, nc, k, dtype, tol):
     assert _rel(y, chain_up_reference(w, upm)) <= tol
 
 
+# (nb, cells per axis, k, r): odd per-axis cell counts, one cell, r other
+# than k + 1 (fewer and more rows than dofs per cell), k = 1, dim 2
+_BLOCKED = [(5, (3, 5, 7), 4, 5), (3, (2, 3, 4), 2, 2), (2, (2, 3, 4), 2, 6),
+            (4, (1, 1, 1), 3, 4), (3, (5, 1, 2), 1, 2), (6, (4, 3), 4, 5),
+            (2, (1, 7), 2, 3), (3, (9, 2), 3, 8)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3),
                                        (torch.float64, 1e-13)])
-@pytest.mark.parametrize("shape,outs", [((5, 9, 13, 11), (7, 11, 13)),
-                                        ((4, 9, 7), (11, 5)),
-                                        ((2, 17, 17), (20, 20))])
-def test_grid_chain_kernel_dense(dev, shape, outs, dtype, tol):
-    """Dense matrices, odd shapes, dims 3 and 2, and f32 output from bf16
-    data (the sums rounded once)."""
-    g = torch.Generator(device=dev).manual_seed(sum(outs))
-    x = torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
-    mats = [torch.randn((q, n), generator=g, device=dev,
-                        dtype=torch.float64)
-            for q, n in zip(outs, shape[1:])]
-    x, mats = x.to(dtype), [m.to(dtype) for m in mats]
-    got = chain_down(x, mats)
-    assert _rel(got, chain_down_reference(x, mats)) <= tol
-    back = chain_up(got, [m.T.contiguous() for m in mats])
-    assert back.shape == x.shape
+@pytest.mark.parametrize("nb,cells,k,r", _BLOCKED)
+def test_grid_chain_kernel_blocked(dev, nb, cells, k, r, dtype, tol):
+    """Cell-blocked matrices of every shape the contract allows, dims 3
+    and 2, and f32 output from bf16 data (the sums rounded once)."""
+    g = torch.Generator(device=dev).manual_seed(nb * 31 + k * 7 + r)
+    dn = [_blocked(nc, k, r, g, dev).to(dtype) for nc in cells]
+    upm = [_blocked(nc, k, r, g, dev, up=True).to(dtype) for nc in cells]
+    x = torch.randn((nb,) + tuple(nc * k + 1 for nc in cells), generator=g,
+                    device=dev, dtype=torch.float64).to(dtype)
+    w = chain_down(x, dn, cells=cells, k=k)
+    assert w.shape == (nb,) + tuple(nc * r for nc in cells)
+    assert _rel(w, chain_down_reference(x, dn)) <= tol
+    y = chain_up(w, upm, cells=cells, k=k)
+    assert y.shape == x.shape
+    assert _rel(y, chain_up_reference(w, upm)) <= tol
     if dtype == torch.bfloat16:
-        wide = chain_down(x, mats, torch.float32)
-        assert wide.dtype == torch.float32
-        assert _rel(wide, chain_down_reference(x, mats, torch.float32)) \
-            <= 1e-5
+        for fn, a, m in ((chain_down, x, dn), (chain_up, w, upm)):
+            wide = fn(a, m, torch.float32, cells=cells, k=k)
+            assert wide.dtype == torch.float32
+            assert _rel(wide, chain_reference(a, m, torch.float32)) <= 1e-5
 
 
 def test_grid_chain_kernel_rejects(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
     x = torch.zeros((2, 5, 5, 5), device=dev, dtype=torch.float64)
-    bf = [torch.zeros((6, 5), device=dev, dtype=torch.bfloat16)] * 3
-    with pytest.raises(ValueError):          # f64 data, bf16 matrices
-        chain_down(x, bf)
+    dn = [_blocked(1, 4, 5, g, dev) for _ in range(3)]
+    with pytest.raises(ValueError):          # f64 data, f32 matrices
+        chain_down(x, dn, cells=(1, 1, 1), k=4)
+    with pytest.raises(ValueError):          # no cell structure given
+        chain_down(x.float(), dn)
     with pytest.raises(ValueError):          # matrix/x shape mismatch
-        chain_down(x.float(), [torch.zeros((6, 4), device=dev)] * 3)
-    big = torch.zeros((1, 200, 200, 200), device=dev)
-    with pytest.raises(RuntimeError):        # plane beyond shared memory
-        chain_down(big, [torch.zeros((240, 200), device=dev)] * 3)
+        chain_down(x.float(), [torch.zeros((6, 4), device=dev)] * 3,
+                   cells=(1, 1, 1), k=3)
+    nine = [_blocked(3, 2, 3, g, dev) for _ in range(3)]
+    nine[1][0, 5] = 1.0                      # off the cell blocks
+    with pytest.raises(ValueError):
+        chain_down(torch.zeros((1, 7, 7, 7), device=dev), nine,
+                   cells=(3, 3, 3), k=2)
+    dense = [torch.randn((9, 7), generator=g, device=dev) for _ in range(3)]
+    with pytest.raises(ValueError):          # an unstructured matrix
+        chain_down(torch.zeros((1, 7, 7, 7), device=dev), dense,
+                   cells=(3, 3, 3), k=2)
+    ok = [_blocked(3, 2, 3, g, dev, up=True) for _ in range(3)]
+    w = torch.zeros((1, 9, 9, 9), device=dev)
+    chain_up(w, ok, cells=(3, 3, 3), k=2)
+    ok[2][1, 8] = 2.0                        # changed after its check
+    with pytest.raises(ValueError):
+        chain_up(w, ok, cells=(3, 3, 3), k=2)
+    big = [_blocked(1, 4, 5, g, dev) for _ in range(2)] + [
+        _blocked(300, 4, 5, g, dev)]
+    with pytest.raises(ValueError):          # a row beyond the thread slots
+        chain_down(torch.zeros((1, 5, 5, 1201), device=dev), big,
+                   cells=(1, 1, 300), k=4)
 
 
 # the tp_01 shapes (outer operator T=24, rhs slice T=3), small and ragged
