@@ -8,9 +8,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. build: nvcc builds the hand-written kernels from csrc/, one process
      per source, in parallel (-Xptxas -v);
   3. K1 parity: time_solve kernel vs its plain torch version at the bench
-     shape (S=32, nt=3, N=512,000), bf16 and f32, and at the coefficient
+     shape (S=32, nt=3, N=512,000), bf16 and f32, at the coefficient
      path's cell-local Vanka shapes (S=8, nt=3 and S=4, nt=2 at
-     N=262,144), f32, with both times;
+     N=262,144), f32, and at nt=5 (dG(4), S=2, N=96^3), f32, with both
+     times;
   4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
      B=128 in float64, with both times and the share of the bound;
   4b. K3 parity: banded_apply kernel vs its plain torch version along each
@@ -19,7 +20,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      with both times and the time of one dense matmul with the assembled
      1D matrix (the library yardstick), each per axis with the kernel's
      ratio to the matmul and its share of the bound; the kernels line
-     carries the axis where that ratio is worst and every axis's times;
+     carries the axis where that ratio is worst and every axis's times.
+     Also Q5's k=5 (the 3D pairs K2 does not take) at 8 x 11^3 and
+     8 x 81^3;
   5. K4 parity: the grid chain (chain_down, then chain_up) vs its plain
      torch version with Vanka cell-blocked matrices at the heat fine level
      (96 x 65^3 <-> 80^3) and the wave fine level (48 x 33^3 <-> 40^3),
@@ -67,7 +70,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route (no code shared with K5), must meet FGMRES's own stop test
      ||r|| <= max(abstol, reltol ||r0||) within a factor 2; K5 and K1 must
      each launch in this run.
-Then it prints the nvidia-smi line, a JSON line describing the kernels,
+ 11. tp_01 convergence mode (drivers/tp01.py, errors.py) with the STMG
+     V-cycle at GMGParams' defaults: (a) the 2D golden cells -- heat DG(1)
+     refinements 2 and 3, heat CGP(2) refinement 2, wave DG(1) 4 steps
+     at once refinement 2 -- each error within 2e-5 of the reference
+     golden and the mean FGMRES iterations within stfem_tpu's bounds;
+     (b) configs/tp01_convergence_3d_heat_dg1.json (4^3..32^3, Q2 x dG(1))
+     and configs/tp01_convergence_3d_wave_cgp2.json (4^3..16^3, Q3 x
+     CGP(2)) through run_config, with their tables; per refinement the
+     slab walls, iterations, space-time DoF/s, setup and K1-K4 launches;
+     every slab converges, the L2-L2 rate between the two finest
+     refinements is >= 1.8 (heat) and >= 2.5 (wave), each kernel the path
+     uses launches at the finest refinement, and the last heat slab is
+     profiled again; (c) heat DG(1) refinement 2, wave CGP(2) refinement 1
+     and heat CGP(4) (Q5: the K3 route, K1 at nt 4) refinement 1 on the
+     card against the CPU, every norm within 1e-8 relative.
+Then it prints the nvidia-smi line, a JSON line describing the kernels
+(launches over all main paths and by path),
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the stfem_tpu_torch package beside it, it exits non-zero and
 prints no result.
@@ -133,6 +152,203 @@ def _vanka_band(nc: int, k: int, gen, dev):
         m[c * (k + 1):(c + 1) * (k + 1), c * k:c * k + k + 1] = torch.randn(
             (k + 1, k + 1), generator=gen, device=dev)
     return m
+
+
+# reference tests/tp_01.output (linf, l2, h1; None: not in the repository)
+# and stfem_tpu's own bounds on the mean FGMRES iterations
+# (tests/test_heat_endtoend.py:12-15, :55-57; tests/test_stmg.py:16-45;
+# SURVEY.md:382: heat DG(1) 7 / 9 + 1.05)
+GOLDEN_2D = [
+    ("heat DG(1) ref 2", dict(refinement=2, fe_degree=1, kind="DG",
+                              problem="heat", n_at_once=2),
+     False, (5.53197e-02, 1.78760e-02, 1.35366e-01), 8.05),
+    ("heat DG(1) ref 3", dict(refinement=3, fe_degree=1, kind="DG",
+                              problem="heat", n_at_once=2),
+     False, (9.41838e-03, 3.24200e-03, 2.66020e-02), 10.05),
+    ("heat CGP(2) ref 2", dict(refinement=2, fe_degree=2, kind="CGP",
+                               problem="heat", n_at_once=2),
+     False, (4.36348e-03, 1.57444e-03, 1.16973e-02), 14.0),
+    ("wave DG(1) ref 2", dict(refinement=2, fe_degree=1, kind="DG",
+                              problem="wave", n_at_once=4),
+     True, (7.45999e-02, 2.07852e-02, None), 13.0)]
+
+K_NAMES = (("K1", ("time_solve",)), ("K2", ("kron_pair",)),
+           ("K3", ("banded_apply",)), ("K4", ("chain_down", "chain_up")))
+
+
+def _k_counts(wrappers) -> dict:
+    """K1-K4 launches since the counts were last set to 0."""
+    return {k: sum(wrappers[n].launches for n in names)
+            for k, names in K_NAMES}
+
+
+def _vanka_levels(gmg) -> str:
+    """Which levels of a V-cycle run K1 (a multi-step Vanka), which the
+    dense per-position T x T solve, and which are Identity levels."""
+    k1, dense, ident = [], [], []
+    for lvl, level in enumerate(gmg.levels):
+        vanka = getattr(level.smoother, "precond", None)
+        if vanka is None:
+            ident.append(lvl)
+        else:
+            (k1 if vanka.n_steps > 1 else dense).append(lvl)
+    return (f"K1 on levels {k1}, dense T x T on {dense}, Identity {ident} "
+            f"of 0..{len(gmg.levels) - 1}")
+
+
+def tp01_convergence(wrappers, dev) -> dict:
+    """Phase 11: tp_01's convergence mode on the card (drivers/tp01.py,
+    drivers/heat.py, errors.py) -- (a) the 2D golden cells with the STMG
+    preconditioner at GMGParams' defaults, (b) the two committed 3D
+    configurations through run_config, (c) small 3D cells on the card
+    against the CPU.  Returns the launches of every wrapper over the
+    phase; raises on any failed check.  Sets the counts to 0 first."""
+    import torch
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.config import Parameters
+    from stfem_tpu_torch.drivers import tp01
+    from stfem_tpu_torch.drivers.heat import (run_heat_cycle,
+                                              stmg_preconditioner_factory)
+    from stfem_tpu_torch.stmg.gmg import GMGParams
+    from stfem_tpu_torch.types import ProblemType, TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    total = dict.fromkeys(wrappers, 0)
+    for w in wrappers.values():
+        w.launches = 0
+
+    def reset():
+        for name, w in wrappers.items():
+            total[name] += w.launches
+            w.launches = 0
+
+    def rel(a, b):
+        return abs(a / b - 1.0)
+
+    # (a) the 2D golden cells
+    for label, c, skip, golden, bound in GOLDEN_2D:
+        reset()
+        res = run_heat_cycle(
+            refinement=c["refinement"], fe_degree=c["fe_degree"],
+            type_=getattr(TimeStepType, c["kind"]),
+            problem=getattr(ProblemType, c["problem"]),
+            n_timesteps_at_once=c["n_at_once"], gmres_maxiter=100,
+            preconditioner_factory=stmg_preconditioner_factory(
+                params=GMGParams(skip_identity_levels=skip),
+                fe_degree_min=1), device="cuda")
+        errs = (res.linf_linf, res.l2_l2, res.l2_h1)
+        worst = max(rel(e, g) for e, g in zip(errs, golden) if g)
+        counts = _k_counts(wrappers)
+        print(f"# tp01 2D {label}: linf {errs[0]:.6e} l2 {errs[1]:.6e} "
+              f"h1 {errs[2]:.6e}, worst rel to golden {worst:.2e} (tol "
+              f"2e-5); FGMRES iterations/slab {res.slab_iterations} mean "
+              f"{res.avg_iterations:g} (bound {bound:g}); launches {counts}",
+              flush=True)
+        if not (worst <= 2e-5 and res.avg_iterations <= bound):
+            raise AssertionError(f"tp01 2D {label} missed its golden")
+        if not (counts["K3"] and counts["K4"]):
+            raise AssertionError(f"tp01 2D {label}: K3/K4 never ran")
+
+    # (b) the committed 3D configurations through run_config; per
+    #     refinement the slab walls, iterations, DoF/s, setup, launches
+    bars = {"heat_dg1": (1.8, ("K1", "K2", "K3", "K4")),
+            "wave_cgp2": (2.5, ("K2", "K3", "K4"))}
+    for name, path in tp01.CONVERGENCE_3D.items():
+        p = Parameters.parse(str(path), 3)
+        timer, state, rows = TimerOutput(), {"setup": 0.0, "steps": 0}, []
+        last = {}
+
+        def on_cycle(k, ref, res):
+            walls = timer.times["step"][state["steps"]:]
+            setup = timer.totals["setup"] - state["setup"]
+            state.update(setup=timer.totals["setup"],
+                         steps=len(timer.times["step"]))
+            counts = _k_counts(wrappers)
+            reset()
+            st = res.n_blocks * res.n_dofs
+            rows.append((ref, res.n_cells, st, res.slab_iterations,
+                         sum(walls) / len(walls),
+                         st * len(walls) / sum(walls), setup, counts))
+            print(f"# tp01 3D {name} ref {ref}: {res.n_cells} cells, {st} "
+                  f"space-time DoFs per slab, {len(walls)} slabs, FGMRES "
+                  f"iterations {res.slab_iterations}, slab wall mean "
+                  f"{sum(walls) / len(walls):.4f} s (max {max(walls):.4f}),"
+                  f" {st * len(walls) / sum(walls):.4e} space-time DoF/s, "
+                  f"setup {setup:.2f} s, launches {counts}", flush=True)
+
+        def on_slab(integ, t, dt, prev, x, stats):
+            last.update(integ=integ, t=t, dt=dt, prev=prev)
+
+        reset()
+        t0 = time.time()
+        results = tp01.run_config(p, device="cuda", timer=timer,
+                                  on_cycle=on_cycle, on_slab=on_slab)
+        wall = time.time() - t0
+        l2 = [results[(p.fe_degree, r)].l2_l2
+              for r in range(p.refinement, p.refinement + p.n_ref_cycles)]
+        rate = float(np.log2(l2[-2] / l2[-1]))
+        bar, needed = bars[name]
+        used = sorted(k for k in ("K1", "K2", "K3", "K4")
+                      if any(r[-1][k] for r in rows))
+        print(f"# tp01 3D {name}: L2-L2 rate between the two finest "
+              f"refinements {rate:.3f} (bar {bar}); kernels on this path "
+              f"{used}; finest V-cycle: "
+              f"{_vanka_levels(last['integ'].preconditioner)}; sweep wall "
+              f"{wall:.1f} s", flush=True)
+        if rate < bar:
+            raise AssertionError(f"tp01 3D {name}: rate {rate} < {bar}")
+        missing = [k for k in needed if not rows[-1][-1][k]]
+        if missing:
+            raise AssertionError(f"tp01 3D {name}: kernels never ran at "
+                                 f"the finest refinement: {missing}")
+        if name == "heat_dg1":
+            # the last slab of the finest refinement again, profiled
+            prof = bench_heat.profile_slab(
+                lambda: last["integ"].solve(last["prev"], last["t"],
+                                            last["dt"]), dev, top=8)
+            print(f"# tp01 3D heat_dg1 finest: profile of its last slab "
+                  f"again (untimed): K4 {prof['port_kernels_ms']['grid_chain']}"
+                  f", K2 {prof['port_kernels_ms']['kron_pair']}, K1 "
+                  f"{prof['port_kernels_ms']['time_solve']}, K3 "
+                  f"{prof['port_kernels_ms']['banded_apply']} (launches, "
+                  f"device ms); device busy {prof['device_busy_s']:.4f} s "
+                  f"of {prof['wall_s']:.4f} s wall (share "
+                  f"{prof['device_busy_share']:.4f}), "
+                  f"{prof['n_kernel_launches']} launches; top ops (ms) "
+                  f"{prof['top_ops_ms'][:6]}", flush=True)
+        last.clear()
+        del results
+        torch.cuda.empty_cache()
+
+    # (c) small 3D cells: the card against the CPU (plain kernels)
+    small = [("heat_dg1", 2, {}), ("wave_cgp2", 1, {}),
+             ("heat_dg1", 1, {"type": TimeStepType.CGP, "fe_degree": 4})]
+    for name, ref, over in small:
+        p = Parameters.parse(str(tp01.CONVERGENCE_3D[name]), 3)
+        for key, val in over.items():
+            setattr(p, key, val)
+        label = f"{p.problem.name} {p.type.name}({p.fe_degree}) ref {ref}"
+        out = {}
+        for where in ("cuda", "cpu"):
+            reset()
+            out[where] = (tp01.run_single(p, p.fe_degree, ref, device=where),
+                          _k_counts(wrappers))
+        (rg, cg), (rc, _) = out["cuda"], out["cpu"]
+        errs = [rel(getattr(rg, n), getattr(rc, n))
+                for n in ("linf_linf", "l2_l2", "l2_h1")]
+        print(f"# tp01 small 3D {label}: gpu l2 {rg.l2_l2:.10e} cpu "
+              f"{rc.l2_l2:.10e}, worst rel difference of the three norms "
+              f"{max(errs):.2e} (tol 1e-8); FGMRES iterations/slab gpu "
+              f"{rg.slab_iterations} cpu {rc.slab_iterations}; gpu launches "
+              f"{cg}", flush=True)
+        if max(errs) > 1e-8:
+            raise AssertionError(f"tp01 small {label}: card and CPU differ")
+        if p.fe_degree == 4 and not (cg["K3"] and cg["K1"]
+                                     and cg["K2"] == 0):
+            raise AssertionError("tp01 small CGP(4): the Q5 pair did not "
+                                 "take the K3 route with K1")
+    reset()
+    return total
 
 
 def main() -> int:
@@ -204,7 +420,9 @@ def main() -> int:
             (32, 3, (16 * 5) ** 3, ((torch.bfloat16, 8e-3),
                                     (torch.float32, 1e-5))),
             (8, 3, 4096 * 64, ((torch.float32, 1e-5),)),
-            (4, 2, 4096 * 64, ((torch.float32, 1e-5),))):
+            (4, 2, 4096 * 64, ((torch.float32, 1e-5),)),
+            # dG(4) (nt = 5) at the grid Vanka of a 16^3 Q5 level, 2 steps
+            (2, 5, 96 ** 3, ((torch.float32, 1e-5),))):
         G = (0.3 * torch.randn((nt, nt, N), generator=gen, device=dev))
         c = torch.rand((nt, N), generator=gen, device=dev) * 1.8 - 0.9
         for dt, tol in dts:
@@ -269,8 +487,19 @@ def main() -> int:
                                           device=dev)).base
     xs = torch.randn((3,) + m8.dof_shape(2), generator=gen, device=dev,
                      dtype=torch.float64)
+    # Q5 (k = 5): the CGP(4) check of phase 11 (8 blocks x 11^3) and a
+    # 16^3 Q5 grid (81^3) with 8 blocks
+    q5 = [KronAssembled(*(LaplaceMassOperator(
+        StructuredMesh([c] * 3, [0.0] * 3, [1.0] * 3), 5, 6, m, l,
+        dtype=torch.float64, device=dev) for m, l in ((0.0, 1.0),
+                                                      (1.0, 0.0))),
+        torch.float64) for c in (2, 16)]
+    x5 = [torch.randn((8,) + (c * 5 + 1,) * 3, generator=gen, device=dev,
+                      dtype=torch.float64) for c in (2, 16)]
     for label, xk, kr in (("B=128 x 65^3 k=4", x, kron),
-                          ("Stokes 3 x 17^3 k=2", xs, st_kron)):
+                          ("Stokes 3 x 17^3 k=2", xs, st_kron),
+                          ("Q5 8 x 11^3 k=5", x5[0], q5[0]),
+                          ("Q5 8 x 81^3 k=5", x5[1], q5[1])):
         errs, rels, mss, plains, libs = [], [], [], [], []
         for d, axis in enumerate((-3, -2, -1)):
             D, A = kr.Md[d], kr.M1[d]
@@ -312,7 +541,7 @@ def main() -> int:
             extras["banded_apply"] = {
                 "axis": (-3, -2, -1)[w], "copy_ms": copy, "ms_by_axis": mss,
                 "plain_ms_by_axis": plains, "library_ms_by_axis": libs}
-    del x, xs, kron, st_kron
+    del x, xs, kron, st_kron, q5, x5
     torch.cuda.empty_cache()
     phase_done("K3")
 
@@ -502,7 +731,7 @@ def main() -> int:
                              "chain_up"),
                     "stokes": ("kron_pair", "banded_apply"),
                     "coefficient": ("time_solve", "quad_middle")}
-    launches = dict.fromkeys(wrappers, 0)
+    launches, by_path = dict.fromkeys(wrappers, 0), {}
     for label, bench, args in (("heat", bench_heat, (16, 32)),
                                ("wave", bench_wave, (8, 16)),
                                ("stokes", bench_stokes, (8, 8))):
@@ -547,6 +776,7 @@ def main() -> int:
             raise AssertionError(f"{label}: kernels never ran: {missing}")
         for name, c in counts.items():
             launches[name] += c
+        by_path[label] = counts
         phase_done(f"{label} main path")
 
     # 10. the coefficient main path: tp_01 practical mode at 16^3, 4 slabs
@@ -616,8 +846,18 @@ def main() -> int:
         raise AssertionError(f"coefficient: kernels never ran: {missing}")
     for name, c in counts.items():
         launches[name] += c
+    by_path["coefficient"] = counts
     del slabs, integ, A_grid, R_grid
+    torch.cuda.empty_cache()
     phase_done("coefficient main path")
+
+    # 11. tp_01 convergence mode: the 2D golden cells, the two 3D sweeps,
+    #     small 3D cells against the CPU
+    counts = tp01_convergence(wrappers, dev)
+    for name, c in counts.items():
+        launches[name] += c
+    by_path["tp01 convergence"] = counts
+    phase_done("tp01 convergence")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),
@@ -629,12 +869,15 @@ def main() -> int:
                               "stfem_tpu/ops/pallas_grid.py:158"),
                "quad_middle": ("stfem_tpu_torch/csrc/quad_middle.cu",
                                "stfem_tpu/ops/pallas_kernels.py:86")}
-    launches["grid_chain"] = launches["chain_down"] + launches["chain_up"]
+    for counts in [launches] + list(by_path.values()):
+        counts["grid_chain"] = counts["chain_down"] + counts["chain_up"]
     kernels = []
     for name, (src, rep) in sources.items():
         err, ms, plain, lib, bound_ms, bound_by = report[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
+                        "launches_by_path": {path: counts[name] for path,
+                                             counts in by_path.items()},
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib, **extras.get(name, {})})

@@ -240,11 +240,12 @@ int launch(const double* x, const double* d, double* y, long long outer,
 }  // namespace
 
 // x, y: [outer, n, inner] f64 (contiguous, distinct); diags: [2k+1, n] f64;
-// 0 <= k <= 4.  Returns the CUDA error code of the launch (0 = success).
+// 0 <= k <= 5 (Q1-Q5).  Returns the CUDA error code of the launch (0 =
+// success).
 extern "C" int stfem_banded_apply(const void* x, const void* diags, void* y,
                                   long long outer, int n, long long inner,
                                   int k, void* stream) {
-  if (outer <= 0 || n <= 0 || inner <= 0 || k < 0 || k > 4)
+  if (outer <= 0 || n <= 0 || inner <= 0 || k < 0 || k > 5)
     return (int)cudaErrorInvalidValue;
   auto xp = static_cast<const double*>(x);
   auto dp = static_cast<const double*>(diags);
@@ -255,6 +256,7 @@ extern "C" int stfem_banded_apply(const void* x, const void* diags, void* y,
     case 1: return launch<1>(xp, dp, yp, outer, n, inner, st);
     case 2: return launch<2>(xp, dp, yp, outer, n, inner, st);
     case 3: return launch<3>(xp, dp, yp, outer, n, inner, st);
-    default: return launch<4>(xp, dp, yp, outer, n, inner, st);
+    case 4: return launch<4>(xp, dp, yp, outer, n, inner, st);
+    default: return launch<5>(xp, dp, yp, outer, n, inner, st);
   }
 }

@@ -99,6 +99,10 @@ int launch(const void* w, const void* ginv, const void* cvec, void* out,
       time_solve_kernel<T, 4><<<blocks, threads, 0, stream>>>(w_, g_, c_, o_,
                                                               S, N);
       break;
+    case 5:
+      time_solve_kernel<T, 5><<<blocks, threads, 0, stream>>>(w_, g_, c_, o_,
+                                                              S, N);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -107,8 +111,9 @@ int launch(const void* w, const void* ginv, const void* cvec, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (w and out share it).  Returns the CUDA
-// error code of the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (w and out share it); nt = 1..5 (dG(0)
+// to dG(4), CGP(1) to CGP(5)).  Returns the CUDA error code of the launch
+// (0 = success).
 extern "C" int stfem_time_solve(const void* w, const void* ginv,
                                 const void* cvec, void* out, int S, int nt,
                                 long long N, int dtype, void* stream) {

@@ -1,10 +1,11 @@
-"""Spatial right-hand-side assembly, the first-order slab integrator and
-the wave velocity recovery (counterpart of stfem_tpu/integrators.py:
-ForceAssembler, TimeIntegratorFO, and the DG recovery of
-TimeIntegratorWave._solve_wave_impl).  TimeIntegratorFO drives the tp_01
-heat cycle (drivers/heat.py); bench_heat.py and bench_wave.py run their
-own time loops.  TimeIntegratorWave and the strong-Dirichlet lift of
-TimeIntegratorFO are not ported."""
+"""Spatial right-hand-side assembly, the first-order and wave slab
+integrators and the bench's wave velocity recovery (counterpart of
+stfem_tpu/integrators.py: ForceAssembler, TimeIntegratorFO,
+TimeIntegratorWave).  TimeIntegratorFO and TimeIntegratorWave drive the
+tp_01 heat and wave cycles (drivers/heat.py); bench_heat.py and
+bench_wave.py run their own time loops (the wave bench with
+WaveVelocityRecovery, its DG-only recovery).  The strong-Dirichlet lift of
+TimeIntegratorFO is not ported."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -132,6 +133,68 @@ class TimeIntegratorFO:
                      reltol=self.reltol, abstol=self.abstol)
         return res.x, SolveStats(res.iterations, res.residual,
                                  res.converged)
+
+
+class TimeIntegratorWave(TimeIntegratorFO):
+    """Wave slab integrator (reference include/time_integrators.h:400-447;
+    stfem_tpu integrators.py:191-250): the u-solve of the Schur-reduced
+    tables -- rhs = rhs_matrix (prev u) + rhs_matrix_v (prev v) + force,
+    then FGMRES -- and the dense v-recovery epilogue in float64, per step
+        DG:  v = AixB u_s + AixG[:, 0] u_{s-1}[last]
+        CGP: v = AixB u_s + AixG[:, 0] v_{s-1}[last] + AixZ[:, 0] u_{s-1}[last]
+    with AixB = A1^{-1} B1, AixG = A1^{-1} G1 (negated for DG) and AixZ =
+    -A1^{-1} Z1 (CGP) from the single-step first-order tables, and step
+    -1's values the previous slab's u and v."""
+
+    def __init__(self, type_: TimeStepType, time_degree: int,
+                 Alpha_1, Beta_1, Gamma_1, Zeta_1, gmres_reltol: float,
+                 matrix, preconditioner, rhs_matrix, rhs_matrix_v,
+                 force: ForceAssembler, n_timesteps_at_once: int,
+                 extrapolate: bool = True, abstol: float = 1e-12,
+                 maxiter: int = 100):
+        super().__init__(type_, time_degree, Alpha_1, Gamma_1, gmres_reltol,
+                         matrix, preconditioner, rhs_matrix, force,
+                         n_timesteps_at_once, extrapolate, abstol, maxiter)
+        self.rhs_matrix_v = rhs_matrix_v
+        Ainv = np.linalg.inv(np.asarray(Alpha_1, np.float64))
+        sign = -1.0 if type_ == TimeStepType.DG else 1.0
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                         device=matrix.device)
+        self.AixB = as_t(Ainv @ np.asarray(Beta_1, np.float64))
+        self.AixG = as_t(sign * (Ainv @ np.asarray(Gamma_1, np.float64))[:, 0])
+        self.AixZ = as_t(-(Ainv @ np.asarray(Zeta_1, np.float64))[:, 0])
+
+    def recover_v(self, u: torch.Tensor, prev_u: torch.Tensor,
+                  prev_v: torch.Tensor) -> torch.Tensor:
+        """v of every block of the slab, [n_blocks, *dof], in float64."""
+        nt, S = self.nt_dofs, self.n_timesteps_at_once
+        us = u.reshape((S, nt) + u.shape[1:])
+        starts = torch.cat([prev_u[None], us[:-1, -1]])     # u_{s-1}[last]
+        lead = (1, nt) + (1,) * prev_u.ndim
+        with full_precision():
+            v = torch.einsum("ij,sj...->si...", self.AixB, us)
+            if self.type_ == TimeStepType.DG:
+                v = v + self.AixG.reshape(lead) * starts[:, None]
+            else:
+                v = v + self.AixZ.reshape(lead) * starts[:, None]
+                # v_{s-1}[last] feeds step s: a recurrence over the steps
+                pv = prev_v
+                for s in range(S):
+                    v[s] += self.AixG.reshape(lead[1:]) * pv[None]
+                    pv = v[s, -1]
+        return v.reshape(u.shape)
+
+    def solve_wave(self, prev_u: torch.Tensor, prev_v: torch.Tensor,
+                   time: float, time_step: float):
+        """(u, v, SolveStats) of one slab."""
+        rhs = (self.rhs_matrix.vmult(prev_u[None])
+               + self.rhs_matrix_v.vmult(prev_v[None])
+               + self.assemble_force(time, time_step))
+        res = fgmres(self.matrix.vmult, rhs, self._extrapolate(prev_u),
+                     self.preconditioner, maxiter=self.maxiter,
+                     reltol=self.reltol, abstol=self.abstol)
+        return (res.x, self.recover_v(res.x, prev_u, prev_v),
+                SolveStats(res.iterations, res.residual, res.converged))
 
 
 class WaveVelocityRecovery:

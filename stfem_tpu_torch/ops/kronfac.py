@@ -10,12 +10,17 @@ from the same 1D quadrature as the volume operator.  One (Kx, Mx) pair
 costs 3*dim-1 per-axis applies with a shared mass prefix.
 
 The float32/bfloat16 pair uses the dense per-axis matmuls; the float64
-pair (the IR residual) uses the banded diagonal form: both outputs of a 3D
-grid through kernel K2 (ops/kron_pair.py), any single output (the rhs
-couplings ask for M x alone) as a chain of single-axis applies through
-kernel K3 (ops/banded_apply.py), the structure of stfem_tpu's
-KronPallas9._pair_pallas.  The 1D factors are unconstrained: Dirichlet
-masking stays external (y = mask * A (mask * x)).
+pair (the IR residual, the outer operator of the tp_01 cycle) uses the
+banded diagonal form, dispatched by shape: both outputs of a 3D grid of
+degree k <= kron_pair.MAX_K (Q1-Q4) through kernel K2 (ops/kron_pair.py);
+everything else -- any single output (the rhs couplings ask for M x
+alone), every 2D pair, and the 3D pairs of degree 5 (Q5, the top space
+degree of the reference's CGP sweeps) -- as a chain of single-axis
+applies through kernel K3 (ops/banded_apply.py), the structure of
+stfem_tpu's KronPallas9._pair_pallas.  This is a choice by shape, not a
+fallback: a failed build or launch of either kernel raises.  The 1D
+factors are unconstrained: Dirichlet masking stays external (y = mask *
+A (mask * x)).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from .banded_apply import banded_apply
 from .gridsumfac import axis_apply
+from .kron_pair import MAX_K as KRON_PAIR_MAX_K
 from .kron_pair import kron_pair
 
 __all__ = ["KronAssembled", "to_diags"]
@@ -97,7 +103,8 @@ class KronAssembled:
         requested is None."""
         if self.dtype == torch.float64:
             x = x.contiguous()
-            if need_K and need_M and self.dim == 3:
+            if (need_K and need_M and self.dim == 3
+                    and self.k <= KRON_PAIR_MAX_K):
                 return kron_pair(x, self.Md, self.Ad, self.k)
             apply = lambda D, v, ax: banded_apply(v, D, ax, self.k)
             Mf, Af = self.Md, self.Ad

@@ -17,9 +17,10 @@ import torch
 
 from .cuda_kernels import check, library
 
-__all__ = ["time_solve", "time_solve_reference"]
+__all__ = ["kernel_args", "time_solve", "time_solve_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_NT = 5          # time dofs per step the kernel is compiled for
 
 
 def time_solve_reference(w, GinvT, cvecT, S: int, nt: int, out_dtype):
@@ -39,18 +40,17 @@ def time_solve_reference(w, GinvT, cvecT, S: int, nt: int, out_dtype):
     return out.reshape(S * nt, N).to(out_dtype)
 
 
-def time_solve(w: torch.Tensor, GinvT: torch.Tensor, cvecT: torch.Tensor,
-               S: int, nt: int, out_dtype) -> torch.Tensor:
-    """w: (S*nt, N) -> (S*nt, N) in out_dtype.  GinvT: (nt, nt, N) f32,
-    cvecT: (nt, N) f32."""
-    if w.device.type == "cpu":
-        return time_solve_reference(w, GinvT, cvecT, S, nt, out_dtype)
+def kernel_args(w: torch.Tensor, GinvT: torch.Tensor, cvecT: torch.Tensor,
+                S: int, nt: int, out_dtype):
+    """Check what the kernel takes and prepare its call: (the arguments of
+    stfem_time_solve but the stream, the output to be filled).  Raises
+    ValueError."""
     N = w.shape[-1]
-    if w.device.type != "cuda":
-        raise ValueError(f"time_solve: unsupported device {w.device}")
     if w.dtype not in _DTYPE_CODE or out_dtype != w.dtype:
         raise ValueError(f"time_solve: w dtype {w.dtype} / out dtype "
                          f"{out_dtype} (kernel takes f32 or bf16, equal)")
+    if not 1 <= nt <= MAX_NT:
+        raise ValueError(f"time_solve: nt = {nt} (kernel takes 1..{MAX_NT})")
     if (w.shape != (S * nt, N) or GinvT.shape != (nt, nt, N)
             or cvecT.shape != (nt, N)):
         raise ValueError("time_solve: shape mismatch")
@@ -62,10 +62,21 @@ def time_solve(w: torch.Tensor, GinvT: torch.Tensor, cvecT: torch.Tensor,
             and cvecT.is_contiguous()):
         raise ValueError("time_solve: tensors must be contiguous")
     out = torch.empty_like(w)
+    return (w.data_ptr(), GinvT.data_ptr(), cvecT.data_ptr(), out.data_ptr(),
+            S, nt, N, _DTYPE_CODE[w.dtype]), out
+
+
+def time_solve(w: torch.Tensor, GinvT: torch.Tensor, cvecT: torch.Tensor,
+               S: int, nt: int, out_dtype) -> torch.Tensor:
+    """w: (S*nt, N) -> (S*nt, N) in out_dtype.  GinvT: (nt, nt, N) f32,
+    cvecT: (nt, N) f32."""
+    if w.device.type == "cpu":
+        return time_solve_reference(w, GinvT, cvecT, S, nt, out_dtype)
+    if w.device.type != "cuda":
+        raise ValueError(f"time_solve: unsupported device {w.device}")
+    args, out = kernel_args(w, GinvT, cvecT, S, nt, out_dtype)
     code = library().stfem_time_solve(
-        w.data_ptr(), GinvT.data_ptr(), cvecT.data_ptr(), out.data_ptr(),
-        S, nt, N, _DTYPE_CODE[w.dtype],
-        torch.cuda.current_stream(w.device).cuda_stream)
+        *args, torch.cuda.current_stream(w.device).cuda_stream)
     check(code, "time_solve")
     time_solve.launches += 1
     return out

@@ -29,6 +29,20 @@ def exact_solution(pts, t, f=1.0):
     return v
 
 
+def exact_gradient(pts, t, f=1.0):
+    """grad u, shape [..., dim]."""
+    dim = pts.shape[-1]
+    tv = 2 * PI * f * _sin(2 * PI * f * t)
+    comps = []
+    for i in range(dim):
+        g = tv
+        for j in range(dim):
+            trig = torch.cos if i == j else torch.sin
+            g = g * trig(2 * PI * f * pts[..., j])
+        comps.append(g)
+    return torch.stack(comps, dim=-1)
+
+
 def rhs(pts, t, f=1.0):
     dim = pts.shape[-1]
     v = (dim * 4 * PI ** 2 * f ** 2 * _sin(2 * PI * f * t)

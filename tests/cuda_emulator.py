@@ -1,11 +1,12 @@
-"""Build csrc/grid_chain.cu and csrc/kron_pair.cu for the CPU, for the tests.
+"""Build csrc/grid_chain.cu, csrc/kron_pair.cu, csrc/banded_apply.cu and
+csrc/time_solve.cu for the CPU, for the tests.
 
 The kernels' C sources are compiled by g++ against small stand-ins for
 cuda_runtime.h and cuda_bf16.h: a launch runs the grid's blocks one after
-another, each block's threads as std::threads meeting at a std::barrier
-for __syncthreads(); cp.async becomes a plain copy (with a trap on a
-misaligned 16-byte copy) and shared memory starts out as NaN, so that a
-read of an element nobody wrote shows.  This checks the kernels' indexing,
+another, each block's threads (x fastest, then y, then z) as std::threads
+meeting at a std::barrier for __syncthreads(); cp.async becomes a plain
+copy and shared memory starts out as NaN, so that a read of an element
+nobody wrote shows.  This checks the kernels' indexing,
 tiling and synchronisation on the CPU; speed, and what only nvcc accepts,
 show on the card alone (tests/test_torch_kernels_cuda.py).
 """
@@ -37,6 +38,11 @@ using std::min;
 #define __launch_bounds__(...)
 #define __align__(n)
 struct dim3_ { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
 inline thread_local dim3_ threadIdx, blockIdx;
 inline dim3_ blockDim, gridDim;
 inline thread_local unsigned char* g_smem;
@@ -53,8 +59,9 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
-void emu_launch(unsigned grid, unsigned threads, size_t smem, F f) {
-  blockDim = {threads, 1, 1};
+void emu_launch(unsigned grid, dim3 block, size_t smem, F f) {
+  const unsigned threads = block.x * block.y * block.z;
+  blockDim = {block.x, block.y, block.z};
   gridDim = {grid, 1, 1};
   std::vector<float> sm((smem + 64) / 4, std::nanf(""));
   for (unsigned b = 0; b < grid; ++b) {
@@ -64,7 +71,8 @@ void emu_launch(unsigned grid, unsigned threads, size_t smem, F f) {
     for (unsigned t = 0; t < threads; ++t)
       ts.emplace_back([&, b, t] {
         blockIdx = {b};
-        threadIdx = {t};
+        threadIdx = {t % block.x, t / block.x % block.y,
+                     t / (block.x * block.y)};
         g_smem = reinterpret_cast<unsigned char*>(sm.data());
         g_bar = &bar;
         f();
@@ -99,10 +107,11 @@ def _emulable(src: str) -> str:
     """A kernel source with its device-only pieces replaced."""
     src = re.sub(r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
                  r"unsigned char* \1 = g_smem;", src)
-    src = re.sub(r"extern __shared__ __align__\(16\) double (\w+)\[\];",
-                 r"double* \1 = reinterpret_cast<double*>(g_smem);", src)
-    src = re.sub(r"(void cp_async8\(double\* smem, const double\* gmem\)) "
-                 r"\{.*?\n\}", r"\1 { *smem = *gmem; }", src, flags=re.S)
+    src = re.sub(r"extern __shared__ (?:__align__\(16\) )?(\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(g_smem);", src)
+    src = re.sub(r"(void cp_async8\((?:\w+)\* smem, const (?:\w+)\* gmem\)) "
+                 r"\{.*?\n\}", r"\1 { std::memcpy(smem, gmem, 8); }", src,
+                 flags=re.S)
     src = "\n".join(";" if 'asm volatile("cp.async.' in line
                     and "_group" in line else line
                     for line in src.split("\n"))
@@ -123,7 +132,7 @@ def build(out_dir: Path) -> ctypes.CDLL | None:
     (out_dir / "cuda_runtime.h").write_text(_RUNTIME)
     (out_dir / "cuda_bf16.h").write_text(_BF16)
     srcs = []
-    for name in ("grid_chain", "kron_pair"):
+    for name in ("grid_chain", "kron_pair", "banded_apply", "time_solve"):
         path = out_dir / f"{name}.cpp"
         path.write_text(_emulable((CSRC / f"{name}.cu").read_text()))
         srcs.append(str(path))

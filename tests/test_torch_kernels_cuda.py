@@ -8,7 +8,7 @@ Tolerances, relative to the plain version's max norm: K1 float32 1e-5
 (f32 sums, FMA contraction), K1 bf16 8e-3 (one bf16 rounding of the
 output, 2^-8, either side); K2 float64 1e-14 (the same sums in the same
 order up to FMA contraction); K3 float64 1e-14 (the same taps in the same
-order, on either kernel form); K4 float32 1e-5 (f32 sums in another
+order, on every kernel form); K4 float32 1e-5 (f32 sums in another
 order), bf16 8e-3 (one bf16 rounding of the f32 sums, either side),
 float64 1e-13; K5 float64 1e-12 and float32 1e-5 (sums of 64-500
 products in another order than the plain version's matmuls: FP64 on the
@@ -47,7 +47,8 @@ def _rel(a, b):
                                        (torch.bfloat16, 8e-3)])
 @pytest.mark.parametrize("S,nt,N", [(32, 3, 80 ** 3), (8, 3, 4096 * 64),
                                     (4, 2, 4096 * 64), (5, 1, 1000),
-                                    (7, 2, 257), (4, 4, 4097)])
+                                    (7, 2, 257), (4, 4, 4097), (2, 5, 4099),
+                                    (4, 5, 729)])
 def test_time_solve_kernel(dev, S, nt, N, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(S * N)
     w = torch.randn((S * nt, N), generator=g, device=dev).to(dtype)
@@ -133,7 +134,7 @@ _BANDS = ([((1, 65, 65, 65), 4), ((3, 17, 17, 17), 2), ((2, 9, 13, 11), 4),
            ((1, 5, 7, 9), 2)]
           + [(shape, k) for shape in ((1, 3, 2, 5), (2, 9, 5, 33),
                                       (1, 33, 65, 7), (3, 65, 2, 65))
-             for k in range(5)])
+             for k in range(6)])
 
 
 @pytest.mark.parametrize("axis", [-3, -2, -1])
@@ -170,6 +171,27 @@ def test_kron_single_output_runs_k3(dev, need_K, need_M):
     assert _rel(got, ref) <= 1e-14
 
 
+@pytest.mark.parametrize("cells,B", [((2, 2, 2), 3), ((3, 1, 2), 1)])
+def test_kron_pair_degree5_runs_k3(dev, cells, B):
+    """A 3D Q5 pair (k = 5, beyond K2's bands) goes to the K3 chain by
+    shape: eight K3 launches (three per axis but the first's two), no K2
+    launch."""
+    mesh = StructuredMesh(list(cells), [0.0] * 3, [1.0] * 3)
+    ops = [LaplaceMassOperator(mesh, 5, 6, m, l, dtype=torch.float64,
+                               device=dev) for m, l in ((0.0, 1.0),
+                                                        (1.0, 0.0))]
+    kron = KronAssembled(*ops, torch.float64)
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = torch.randn((B,) + mesh.dof_shape(5), generator=g, device=dev,
+                    dtype=torch.float64)
+    k3, k2 = banded_apply.launches, kron_pair.launches
+    K, M = kron.pair(x)
+    torch.cuda.synchronize()
+    assert kron_pair.launches == k2 and banded_apply.launches == k3 + 8
+    Kr, Mr = kron_pair_reference(x, kron.Md, kron.Ad, 5)
+    assert _rel(K, Kr) <= 1e-14 and _rel(M, Mr) <= 1e-14
+
+
 def test_banded_apply_kernel_rejects(dev):
     D = torch.zeros((3, 5), device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
@@ -180,8 +202,8 @@ def test_banded_apply_kernel_rejects(dev):
     with pytest.raises(ValueError):          # k beyond the compiled bands
         banded_apply(torch.zeros((2, 11, 11), device=dev,
                                  dtype=torch.float64),
-                     torch.zeros((11, 11), device=dev, dtype=torch.float64),
-                     -1, 5)
+                     torch.zeros((13, 11), device=dev, dtype=torch.float64),
+                     -1, 6)
 
 
 def _blocked(nc, k, r, g, dev, up=False):

@@ -1,20 +1,22 @@
-"""Kernels K4 (csrc/grid_chain.cu) and K2 (csrc/kron_pair.cu) run on the CPU
-through tests/cuda_emulator.py (g++, one std::thread per CUDA thread),
-called with the arguments their wrappers prepare (grid_chain.kernel_args,
-kron_pair.kernel_args: the same checks, tile plans and output buffers as
-on the card), against the plain torch versions.
+"""Kernels K4 (csrc/grid_chain.cu), K2 (csrc/kron_pair.cu), K3
+(csrc/banded_apply.cu) and K1 (csrc/time_solve.cu) run on the CPU through
+tests/cuda_emulator.py (g++, one std::thread per CUDA thread), called with
+the arguments their wrappers prepare (the wrappers' kernel_args: the same
+checks, tile plans and output buffers as on the card), against the plain
+torch versions.
 
 This holds the kernels' indexing, tiling and barriers on the CPU; the card
 tests (tests/test_torch_kernels_cuda.py) hold what nvcc builds.  Shared
 memory starts as NaN in the emulator, so a read of an unwritten element
 fails the comparison.  Tolerances, relative to the plain version's max
 norm, as on the card: K4 float64 1e-13, float32 1e-5, bf16 8e-3 (one bf16
-rounding); K2 float64 1e-14."""
+rounding); K2 and K3 float64 1e-14; K1 float32 1e-5, bf16 8e-3."""
 import numpy as np
 import pytest
 import torch
 
-from stfem_tpu_torch.ops import cuda_kernels, grid_chain, kron_pair
+from stfem_tpu_torch.ops import (banded_apply, cuda_kernels, grid_chain,
+                                 kron_pair, time_solve)
 
 from cuda_emulator import build
 
@@ -104,3 +106,41 @@ def test_kron_pair_emulated(emulated, cells, k, B):
     assert emulated.stfem_kron_pair(*args, None) == 0
     Kr, Mr = kron_pair.kron_pair_reference(x, Dm, Da, k)
     assert _rel(kx, Kr) <= 1e-14 and _rel(mx, Mr) <= 1e-14
+
+
+# each of K3's three forms: whole rows (inner = 1, n <= 256), short slabs
+# (n inner <= 4608) and register-window pencils (segmented here: too few
+# pencils to fill the card), at every half-bandwidth the kernel is built
+# for, Q5's k = 5 among them, n < 2k + 1 included
+@pytest.mark.parametrize("k", range(banded_apply.MAX_K + 1))
+@pytest.mark.parametrize("shape,axis", [((3, 4, 11), -1), ((2, 11, 6), -2),
+                                        ((2, 7, 9, 3), -3),
+                                        ((1, 41, 120), -2)])
+def test_banded_apply_emulated(emulated, shape, axis, k):
+    rng = np.random.default_rng(10 * k + len(shape))
+    x = torch.as_tensor(rng.standard_normal(shape))
+    D = _diags(rng, k, shape[axis])
+    args, y = banded_apply.kernel_args(x, D, axis, k)
+    y.fill_(float("nan"))
+    assert emulated.stfem_banded_apply(*args, None) == 0
+    ref = banded_apply.banded_apply_reference(x, D, axis, k)
+    assert _rel(y, ref) <= 1e-14
+
+
+# every nt the kernel is built for (dG(4)'s nt = 5 among them), a ragged
+# last block of positions
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("nt", range(1, time_solve.MAX_NT + 1))
+def test_time_solve_emulated(emulated, nt, dtype, tol):
+    rng = np.random.default_rng(nt)
+    S, N = 3, 300
+    w = torch.as_tensor(rng.standard_normal((S * nt, N))).to(dtype)
+    G = torch.as_tensor(0.3 * rng.standard_normal((nt, nt, N)),
+                        dtype=torch.float32)
+    c = torch.as_tensor(rng.uniform(-0.9, 0.9, (nt, N)), dtype=torch.float32)
+    args, out = time_solve.kernel_args(w, G, c, S, nt, dtype)
+    out.fill_(float("nan"))
+    assert emulated.stfem_time_solve(*args, None) == 0
+    ref = time_solve.time_solve_reference(w, G, c, S, nt, dtype)
+    assert _rel(out, ref) <= tol
