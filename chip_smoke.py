@@ -85,6 +85,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
      profiled again; (c) heat DG(1) refinement 2, wave CGP(2) refinement 1
      and heat CGP(4) (Q5: the K3 route, K1 at nt 4) refinement 1 on the
      card against the CPU, every norm within 1e-8 relative.
+ 12. the tp_03stokes application (drivers/tp03stokes.py, drivers/stokes.py;
+     2D Q2 x DGP1, FP64 FGMRES with the f32 Stokes V-cycle at GMGParams'
+     defaults, smoothing range 5): (a) the golden cells DG(1) refinements
+     1 and 2, every norm within 2e-5 of the reference golden (Hdiv 2e-4)
+     and the mean iterations at most golden + 2; (b)
+     configs/tp03stokes_convergence_2d_dg1.json (4^2..64^2 cells, 4 steps
+     per slab) through run_config with its table, per refinement the slab
+     walls, iterations, space-time DoF/s and setup, every slab converged
+     and an L2-L2(u) rate >= 1.8 between the two finest refinements; (c)
+     configs/tp03stokes_lid_2d.json (the Nitsche lid-driven cavity at
+     256^2 cells, 1,445,892 unknowns per slab) for 4 slabs: per slab the
+     iterations, wall, DoF/s, and a true FP64 residual (StokesSystemMatrix
+     .vmult) within 2x of FGMRES's stop test; the functionals file's rows
+     have 6 finite columns; the fourth slab again and one V-cycle alone
+     under the profiler (device busy share, launches per V-cycle); (d)
+     DG(1) and CGP(1) refinement 2 and the weak lid at refinement 3 (2
+     slabs; u, p and the functionals rows) on the card against the CPU
+     within 1e-8, iterations within 1.
+     The path runs none of K1-K5 (launches_by_path "tp03stokes": zeros).
 Then it prints the nvidia-smi line, a JSON line describing the kernels
 (launches over all main paths and by path),
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -349,6 +368,198 @@ def tp01_convergence(wrappers, dev) -> dict:
                                  "take the K3 route with K1")
     reset()
     return total
+
+
+# reference tests/tp_03stokes.output:37-41 (DG(1), Q2/DGP1; the norm
+# order of STOKES_NORMS) and its mean FGMRES iterations (12)
+STOKES_NORMS = ("l2_l2_u", "linf_linf_u", "l2_h1_u", "l2_hdiv_u", "l2_l2_p",
+                "linf_linf_p", "l2_h1_p")
+STOKES_GOLDEN = {1: ((1.65240e-02, 3.33168e-02, 2.84237e-01, 2.2158e-01,
+                      3.94153e-02, 1.01821e-01, 6.16826e-01), 12),
+                 2: ((3.17268e-03, 7.57276e-03, 1.05166e-01, 4.9847e-02,
+                      1.83976e-02, 5.80497e-02, 3.91842e-01), 12)}
+
+
+def tp03stokes_phase(wrappers, dev) -> dict:
+    """Phase 12: the tp_03stokes application on the card (drivers/
+    tp03stokes.py, drivers/stokes.py, the Nitsche faces, the functionals)
+    -- (a) the golden cells, (b) the convergence sweep, (c) the lid-driven
+    cavity at 256^2 cells with a profiled slab, (d) small cells on the card
+    against the CPU.  Returns the launches of every wrapper over the phase
+    (the path runs none of K1-K5); raises on any failed check.  Sets the
+    counts to 0 first."""
+    import torch
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.config import Parameters, StokesParameters
+    from stfem_tpu_torch.drivers import tp03stokes
+    from stfem_tpu_torch.types import TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    for w in wrappers.values():
+        w.launches = 0
+    extra = StokesParameters()
+
+    def rel(a, b):
+        return abs(a / b - 1.0)
+
+    def config(path, **over):
+        p = Parameters.parse(str(path), 2)
+        for key, val in over.items():
+            setattr(p, key, val)
+        return p
+
+    # (a) the golden cells: DG(1), one step at once, tf01stokes's V-cycle
+    p1 = config(tp03stokes.CONVERGENCE_2D, n_timesteps_at_once=1)
+    for ref, (golden, iters) in STOKES_GOLDEN.items():
+        res = tp03stokes.run_single(p1, extra, 1, ref, device="cuda")
+        errs = [getattr(res, n) for n in STOKES_NORMS]
+        rels = [rel(e, g) for e, g in zip(errs, golden)]
+        tols = [2e-4 if n == "l2_hdiv_u" else 2e-5 for n in STOKES_NORMS]
+        print(f"# tp03stokes golden DG(1) ref {ref}: "
+              f"{' '.join(f'{e:.6e}' for e in errs)} (u: L2 Linf H1 Hdiv, "
+              f"p: L2 Linf H1); rel to golden "
+              f"{' '.join(f'{r:.1e}' for r in rels)} (tol 2e-5, Hdiv "
+              f"2e-4); FGMRES iterations/slab {res.slab_iterations} mean "
+              f"{res.avg_iterations:g} (bound {iters + 2})", flush=True)
+        if not (all(r <= t for r, t in zip(rels, tols))
+                and res.avg_iterations <= iters + 2):
+            raise AssertionError(f"tp03stokes golden ref {ref} missed")
+
+    # (b) the convergence sweep through run_config, with its table
+    p = config(tp03stokes.CONVERGENCE_2D)
+    timer, state = TimerOutput(), {"setup": 0.0, "steps": 0}
+
+    def on_cycle(k, ref, res):
+        walls = timer.times["step"][state["steps"]:]
+        setup = timer.totals["setup"] - state["setup"]
+        state.update(setup=timer.totals["setup"],
+                     steps=len(timer.times["step"]))
+        st = res.n_blocks // 2 * (res.n_dofs_u + res.n_dofs_p)
+        print(f"# tp03stokes sweep ref {ref}: {res.n_cells} cells, {st} "
+              f"space-time DoFs per slab, {len(walls)} slabs, FGMRES "
+              f"iterations {res.slab_iterations}, slab wall mean "
+              f"{sum(walls) / len(walls):.4f} s (max {max(walls):.4f}), "
+              f"{st * len(walls) / sum(walls):.4e} space-time DoF/s, setup "
+              f"{setup:.2f} s", flush=True)
+
+    t0 = time.time()
+    results = tp03stokes.run_config(p, extra, device="cuda", timer=timer,
+                                    on_cycle=on_cycle)
+    l2 = [results[(1, r)].l2_l2_u
+          for r in range(p.refinement, p.refinement + p.n_ref_cycles)]
+    rate = float(np.log2(l2[-2] / l2[-1]))
+    print(f"# tp03stokes sweep: L2-L2(u) rate between the two finest "
+          f"refinements {rate:.3f} (bar 1.8); sweep wall "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if rate < 1.8:
+        raise AssertionError(f"tp03stokes sweep: rate {rate} < 1.8")
+    del results
+    torch.cuda.empty_cache()
+
+    # (c) the lid-driven cavity at 256^2 cells: 4 slabs, then one more
+    #     slab (the fourth again) and one V-cycle under the profiler
+    with tempfile.TemporaryDirectory() as tmpd:
+        p = config(tp03stokes.LID_2D,
+                   functional_file=os.path.join(tmpd, "functionals.txt"))
+        timer, slabs = TimerOutput(), []
+        t0 = time.time()
+        res = tp03stokes.run_practical(p, extra, p.fe_degree, p.refinement,
+                                       n_slabs_max=4, device="cuda",
+                                       timer=timer, on_slab=slabs.append)
+        wall = time.time() - t0
+        with open(p.functional_file) as f:
+            rows = [line.split() for line in f if line.strip()]
+    st = res["n_blocks"] * res["n_dofs"]
+    print(f"# tp03stokes lid 256^2 DG(1): {res['n_dofs']} unknowns per "
+          f"block, {st} per slab; setup {timer.totals['setup']:.2f} s "
+          f"(hierarchy {timer.totals['setup:gmg']:.2f} s), phase wall "
+          f"{wall:.1f} s, {len(rows)} functionals rows", flush=True)
+    ok = len(slabs) == 4
+    for i, (s, w) in enumerate(zip(slabs, timer.times["step"])):
+        m, stats = s["matrix"], s["stats"]
+        rn = float((s["rhs"] - m.vmult(s["x"])).norm())
+        r0 = float((s["rhs"] - m.vmult(s["x0"])).norm())
+        tol = max(1e-12, p.rel_tol * r0)
+        print(f"# tp03stokes lid slab {i}: FGMRES iterations "
+              f"{stats.iterations}, slab wall {w:.4f} s, {st / w:.4e} "
+              f"space-time DoF/s; true FP64 ||r|| {rn:.3e} (/||r0|| "
+              f"{rn / r0:.3e}) vs FGMRES tol {tol:.3e}, Givens estimate "
+              f"{stats.residual:.3e}", flush=True)
+        ok = ok and stats.converged and rn <= 2.0 * tol
+    last = slabs[-1]
+    prof = bench_heat.profile_slab(last["resolve"], dev, top=8)
+    v = last["rhs"] / last["rhs"].norm()
+    vprof = bench_heat.profile_slab(lambda: last["preconditioner"](v), dev,
+                                    top=8)
+    its = last["stats"].iterations
+    print(f"# tp03stokes lid: profile of slab 3 again (untimed): device busy "
+          f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall "
+          f"(share {prof['device_busy_share']:.4f}), "
+          f"{prof['n_kernel_launches']} launches over {its} FGMRES "
+          f"iterations; one V-cycle alone: {vprof['n_kernel_launches']} "
+          f"launches, {vprof['wall_s']:.4f} s wall, device busy share "
+          f"{vprof['device_busy_share']:.4f}; top kernels (ms) "
+          f"{prof['top_kernels_ms'][:5]}; top ops (ms) "
+          f"{prof['top_ops_ms'][:5]}", flush=True)
+    bad_rows = [r for r in rows if len(r) != 6
+                or not all(np.isfinite(float(x)) for x in r)]
+    if not (ok and rows and not bad_rows):
+        raise AssertionError("tp03stokes lid: a slab missed its residual "
+                             "or the functionals file is malformed")
+    del slabs, last, res
+    torch.cuda.empty_cache()
+
+    # (d) small cells: the card against the CPU
+    for kind in ("DG", "CGP"):
+        pk = config(tp03stokes.CONVERGENCE_2D, n_timesteps_at_once=1,
+                    type=getattr(TimeStepType, kind))
+        rg, rc = (tp03stokes.run_single(pk, extra, 1, 2, device=d)
+                  for d in ("cuda", "cpu"))
+        worst = max(rel(getattr(rg, n), getattr(rc, n))
+                    for n in STOKES_NORMS)
+        print(f"# tp03stokes small {kind}(1) ref 2: gpu l2 u "
+              f"{rg.l2_l2_u:.10e} cpu {rc.l2_l2_u:.10e}, worst rel "
+              f"difference of the seven norms {worst:.2e} (tol 1e-8); "
+              f"FGMRES iterations/slab gpu {rg.slab_iterations} cpu "
+              f"{rc.slab_iterations}", flush=True)
+        if worst > 1e-8 or any(abs(a - b) > 1 for a, b in
+                               zip(rg.slab_iterations, rc.slab_iterations)):
+            raise AssertionError(f"tp03stokes small {kind}: card and CPU "
+                                 "differ")
+    with tempfile.TemporaryDirectory() as tmpd:
+        out, fun = {}, {}
+        for d in ("cuda", "cpu"):
+            path = os.path.join(tmpd, f"f_{d}.txt")
+            pl = config(tp03stokes.LID_2D, functional_file=path)
+            out[d] = tp03stokes.run_practical(pl, extra, 1, 3, n_slabs_max=2,
+                                              device=d)
+            fun[d] = np.loadtxt(path, ndmin=2)
+    worst = max(float(np.abs(out["cuda"][n] - out["cpu"][n]).max()
+                      / np.abs(out["cpu"][n]).max()) for n in ("u", "p"))
+    # the functionals (t, u_x(p), u_y(p), F_x, F_y, div) against the
+    # largest value of their quantity: u_x at the centre and the wall's
+    # normal force are rounding noise by symmetry
+    m = np.abs(fun["cpu"]).max(axis=0)
+    scale = np.array([m[0], *[max(m[1:3])] * 2, *[max(m[3:5])] * 2, m[5]])
+    worst_f = (float((np.abs(fun["cuda"] - fun["cpu"]) / scale).max())
+               if fun["cuda"].shape == fun["cpu"].shape
+               and fun["cpu"].shape[1] == 6 else np.inf)
+    print(f"# tp03stokes small weak lid ref 3, 2 slabs: worst difference of "
+          f"u and p relative to their largest entry {worst:.2e}, of the "
+          f"functionals rows relative to their quantity's largest value "
+          f"{worst_f:.2e} (tol 1e-8 each); FGMRES iterations gpu "
+          f"{out['cuda']['iterations']} cpu {out['cpu']['iterations']}",
+          flush=True)
+    if max(worst, worst_f) > 1e-8 or any(abs(a - b) > 1 for a, b in zip(
+            out["cuda"]["iterations"], out["cpu"]["iterations"])):
+        raise AssertionError("tp03stokes small lid: card and CPU differ")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    print(f"# tp03stokes launches {counts}: the Stokes application runs no "
+          f"port kernel -- its operator is matmuls against the full-cell "
+          f"basis, its smoother batched dense Vanka solves, and stfem_tpu's "
+          f"counterpart of this path reaches no Pallas kernel either",
+          flush=True)
+    return counts
 
 
 def main() -> int:
@@ -858,6 +1069,14 @@ def main() -> int:
         launches[name] += c
     by_path["tp01 convergence"] = counts
     phase_done("tp01 convergence")
+
+    # 12. the tp_03stokes application: golden cells, the convergence
+    #     sweep, the 256^2 lid-driven cavity, small cells against the CPU
+    counts = tp03stokes_phase(wrappers, dev)
+    for name, c in counts.items():
+        launches[name] += c
+    by_path["tp03stokes"] = counts
+    phase_done("tp03stokes")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

@@ -46,7 +46,7 @@ from .mesh.grid import StructuredMesh
 from .ops.spatial import LaplaceMassOperator, _sumfac, cell_scatter
 from .ops.stokes import StokesOperator
 from .ops.stokes_residual import build_stokes_residual64
-from .stmg.gmg import build_stmg_stokes
+from .stmg.gmg import GMGParams, build_stmg_stokes
 from .system_stokes import StokesSystemMatrix
 from .time.tables import get_fe_time_weights, get_time_quad
 from .types import TimeStepType
@@ -129,7 +129,10 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
     a, b, g, _ = get_fe_time_weights(dg, FE_DEGREE, TAU, ntao)
     matrix = StokesSystemMatrix(S, Mu, a, b)
     rhs_matrix = StokesSystemMatrix(S, Mu, a, b, gamma=None, zeta=g)
-    gmg = build_stmg_stokes(mesh, FE_DEGREE, dg, ntao, TAU, dtype=f32,
+    # bench.py:143-156: GMGParams' defaults with tf01stokes's smoothing
+    # range
+    gmg = build_stmg_stokes(mesh, FE_DEGREE, dg, ntao, TAU,
+                            params=GMGParams(smoothing_range=5.0), dtype=f32,
                             device=device)
     _sync(device)
     print(f"# setup/hierarchy {time.time() - t_setup:.1f}s", flush=True)

@@ -7,7 +7,8 @@ default clamping mirrors parameters.h:162-175, and the golden-era
 time_before_space inversion is stfem_tpu's.  The multigrid keys fill the
 port's GMGParams; keys it has no field for are ignored, and the options
 the port does not run (Chebyshev, GMRES coarse solves) raise where the
-hierarchy is built.  StokesParameters is not ported.
+hierarchy is built.  StokesParameters is the tp_03stokes block, parsed
+from the same file.
 """
 from __future__ import annotations
 
@@ -186,4 +187,52 @@ class Parameters:
         # inter-step-jump modes never reach a time transfer on a fine mesh.
         if p.coarsening_type == CoarseningType.space_or_time:
             p.time_before_space = not p.time_before_space
+        return p
+
+
+@dataclass
+class StokesParameters:
+    """Stokes-specific parameter block (counterpart of
+    stfem_tpu/config.py::StokesParameters; reference stokes::Parameters,
+    stokes.h:12-34 / stokes.cc:6-27), parsed from the same JSON file as
+    Parameters with the reference's key names."""
+    compute_drag_lift: bool = True
+    rho: float = 1.0
+    characteristic_diameter: float = 0.1
+    u_mean: float = 1.0
+    viscosity: float = 1.0
+    delta0: float = 0.0
+    delta1: float = 0.0
+    penalty1: float = 20.0
+    penalty2: float = 10.0
+    outflow_penalty: float = 0.0
+    mean_pressure: bool = True
+    dg_pressure: bool = True
+    dfg_benchmark: int = 0
+    height: float = 0.41
+
+    @classmethod
+    def parse(cls, file_name: str) -> "StokesParameters":
+        with open(file_name) as f:
+            raw = json.load(f)
+        p = cls()
+        key_map = {
+            "computeDragLift": ("compute_drag_lift", _to_bool),
+            "rho": ("rho", float),
+            "characteristicDiam": ("characteristic_diameter", float),
+            "uMean": ("u_mean", float),
+            "viscosity": ("viscosity", float),
+            "delta0": ("delta0", float),
+            "delta1": ("delta1", float),
+            "penalty1": ("penalty1", float),
+            "penalty2": ("penalty2", float),
+            "outflowPenalty": ("outflow_penalty", float),
+            "meanPressure": ("mean_pressure", _to_bool),
+            "dGPressure": ("dg_pressure", _to_bool),
+            "dfgBenchmark": ("dfg_benchmark", int),
+        }
+        for key, value in raw.items():
+            if key in key_map:
+                attr, conv = key_map[key]
+                setattr(p, attr, conv(value))
         return p

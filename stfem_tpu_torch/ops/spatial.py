@@ -20,7 +20,7 @@ import torch
 from ..mesh.fe import shape_data_1d
 from ..mesh.grid import StructuredMesh
 
-__all__ = ["LaplaceMassOperator", "cell_gather", "cell_scatter"]
+__all__ = ["LaplaceMassOperator", "cell_gather", "cell_scatter", "overlap_add"]
 
 
 def _axis_letters(dim):
@@ -68,6 +68,20 @@ def cell_scatter(y: torch.Tensor, cells: tuple[int, ...], k: int):
         shared = seg.reshape(lead_shape + ((nc + 1) * k,))[..., :nc * k + 1]
         y = torch.movedim(out + shared, -1, axis)
     return y
+
+
+def overlap_add(y: torch.Tensor, src: torch.Tensor, dim: int):
+    """[..., N] -> [..., n]: each output entry sums the entries of y that
+    src (flattened (n, 2, .., 2), N where there is none) lists for it,
+    over the trailing two-entry axes from the last to the first: with
+    utils/assembly.py::overlap_sources, cell_scatter's sums bitwise, in a
+    gather, a pad and dim reductions."""
+    yp = torch.nn.functional.pad(y, (0, 1))
+    out = yp.index_select(-1, src).reshape(y.shape[:-1] + (-1,)
+                                           + (2,) * dim)
+    for _ in range(dim):
+        out = out.sum(-1)
+    return out
 
 
 def _sumfac(mats, x, dim, forward=True):
@@ -135,11 +149,13 @@ class LaplaceMassOperator:
             w = w * self.coeff_np
         return np.broadcast_to(w, tuple(self.cells) + (self.n_q,) * self.dim)
 
-    def apply(self, x: torch.Tensor):
-        """y = mask . A (mask . x); x has shape [..., *dofshape]."""
+    def apply(self, x: torch.Tensor, mask_input: bool = True):
+        """y = mask . A (mask . x); x has shape [..., *dofshape].
+        mask_input=False reads the constrained dofs too (the strong
+        Dirichlet lift, drivers/stokes.py); the output stays masked."""
         cM, cK = self.mass_scaling, self.laplace_scaling
         dim, k = self.dim, self.degree
-        u = cell_gather(x * self.mask, self.cells, k)
+        u = cell_gather(x * self.mask if mask_input else x, self.cells, k)
         S, D, w = self.S, self.D, self.w
         acc = None
         if cM != 0.0:
@@ -171,9 +187,9 @@ class LaplaceMassOperator:
                                                 a_idx[:, d][:, None]]
         return Phi, Grad
 
-    def element_matrices(self) -> torch.Tensor:
+    def element_matrices(self, masked: bool = True) -> torch.Tensor:
         """Exact per-cell element matrices E[C, A, A] with Dirichlet rows
-        and columns eliminated (zeroed)."""
+        and columns eliminated (zeroed) unless masked is False."""
         dim, k = self.dim, self.degree
         Phi, Grad = self._basis_tensors()
         Phi = torch.as_tensor(Phi, dtype=self.dtype, device=self.device)
@@ -192,5 +208,7 @@ class LaplaceMassOperator:
                 E = E + cK * torch.einsum("cq,aq,bq->cab",
                                           wq * self.jfac[e] ** 2,
                                           Grad[e], Grad[e])
+        if not masked:
+            return E
         mloc = cell_gather(self.mask, self.cells, k).reshape(C, -1)
         return E * mloc[:, :, None] * mloc[:, None, :]

@@ -1,6 +1,6 @@
 """Matrix-free Stokes saddle-point operator on structured meshes
 (counterpart of stfem_tpu/ops/stokes.py::StokesOperator; the
-DGP-pressure, uniform-mesh, strong-Dirichlet case).
+DGP-pressure, uniform-mesh case with strong or Nitsche velocity faces).
 
 Weak form per cell (reference include/operators.h:1525-1575):
   u-row:  nu (grad u, grad v) - (p, div v)
@@ -15,18 +15,30 @@ p = x[:, n_u:].reshape(T, *cells, n_ploc).
 The quadrature is stfem_tpu's (the same 1D shape data and Gauss rule);
 the per-axis sum factorization becomes one matmul against the full-cell
 basis gradients (A x dim*Q, 27 x 81 for Q2 with 3 points per axis), which
-computes the same sums in fewer, larger launches.  Navier modes, Nitsche
-faces, the obstacle, CIP, backflow, FE_Q pressure and mapped (jinv)
-meshes are not ported.
+computes the same sums in fewer, larger launches.
+
+Weak faces (reference do_boundary_face_integral_local and
+StokesNitscheMatrixFreeOperator, operators.h:1658-1951): each listed
+boundary face (axis, side) carries Nitsche terms with penalties gamma1 =
+nu penalty1 and gamma2 = penalty2 over the face size, and its velocity
+dofs stay free.  A face's terms are one batched pass over its layer of
+cells, every velocity component at once; the per-face tables are built
+once, at construction.  The Navier modes, the obstacle, CIP, backflow,
+free (do-nothing) faces, FE_Q pressure and mapped meshes are not ported
+and raise.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..mesh.fe_dgp import dgp_values_at_tensor_gauss, n_dgp_dofs
+from ..mesh.fe import q_nodes_1d, shape_data_1d
+from ..mesh.fe_dgp import (dgp_exponents, dgp_values_at_tensor_gauss,
+                           n_dgp_dofs, shifted_legendre_value)
 from ..mesh.grid import StructuredMesh
-from .spatial import LaplaceMassOperator, cell_gather, cell_scatter
+from ..time.quadrature import LagrangeBasis, gauss
+from ..utils.assembly import cell_dof_indices, overlap_sources
+from .spatial import LaplaceMassOperator, _sumfac, cell_gather, cell_scatter
 
 __all__ = ["StokesOperator"]
 
@@ -34,7 +46,15 @@ __all__ = ["StokesOperator"]
 class StokesOperator:
     def __init__(self, mesh: StructuredMesh, u_degree: int, p_degree: int,
                  n_q: int, viscosity: float = 1.0, dtype=torch.float64,
-                 device="cuda"):
+                 device="cuda", dg_pressure: bool = True, weak_faces=(),
+                 free_faces=(), penalty1: float = 20.0,
+                 penalty2: float = 10.0, weak_obstacle: bool = False):
+        """weak_faces: boundary faces (axis, side) with Nitsche weak
+        Dirichlet conditions; they are not eliminated from the velocity
+        mask (corners shared with a strong face stay eliminated)."""
+        if not dg_pressure or free_faces or weak_obstacle:
+            raise NotImplementedError("FE_Q pressure, free faces and the "
+                                      "weak obstacle are not ported")
         self.mesh = mesh
         self.dim = dim = mesh.dim
         self.u_degree = u_degree
@@ -43,6 +63,7 @@ class StokesOperator:
         self.viscosity = float(viscosity)
         self.dtype = dtype
         self.device = torch.device(device)
+        self.dg_pressure = True
         self.cells = mesh.cells
         self.dof_shape_u = mesh.dof_shape(u_degree)
         self.n_ploc = n_dgp_dofs(dim, p_degree)
@@ -51,8 +72,20 @@ class StokesOperator:
         geom = mesh.geometry(n_q)
         self.jxw = as_t(geom.jxw)
         self.jinv_diag = np.asarray(geom.jinv_diag, np.float64)
-        self.mask_u_np = mesh.boundary_dof_mask(u_degree)
-        self.mask_u = as_t(self.mask_u_np)
+        self.weak_faces = tuple((int(d), int(s)) for d, s in weak_faces)
+        self.gamma1 = self.viscosity * float(penalty1)
+        self.gamma2 = float(penalty2)
+        # strong faces eliminated, weak faces free (stfem_tpu ops/stokes.py
+        # :136-180)
+        mask = mesh.boundary_dof_mask(u_degree)
+        for d0, side in self.weak_faces:
+            mask[self._plane(d0, side)] = 1.0
+        for d in range(dim):
+            for side in (0, 1):
+                if (d, side) not in self.weak_faces:
+                    mask[self._plane(d, side)] = 0.0
+        self.mask_u_np = mask
+        self.mask_u = as_t(mask)
         # modal pressure basis at the tensor Gauss points (reference cell)
         self.Pq = as_t(dgp_values_at_tensor_gauss(dim, p_degree, n_q))
         self.n_u = dim * int(np.prod(self.dof_shape_u))
@@ -70,6 +103,15 @@ class StokesOperator:
         self._GW = as_t(gw.reshape(dim * Q, A))
         self._eye = torch.eye(dim, dtype=dtype, device=self.device).reshape(
             dim, 1, dim, 1)
+        self._S1 = as_t(shape_data_1d(u_degree, n_q).S)      # (q, k+1)
+        self._faces = [self._face_setup(d0, side)
+                       for d0, side in self.weak_faces]
+
+    def _plane(self, d0: int, side: int, ndim: int | None = None):
+        """Index of the boundary dof plane (axis d0, side) of a grid."""
+        idx = [slice(None)] * (self.dim if ndim is None else ndim)
+        idx[d0] = 0 if side == 0 else -1
+        return tuple(idx)
 
     # -- packing ------------------------------------------------------------
     def pack(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -114,14 +156,21 @@ class StokesOperator:
         return t.reshape(t.shape[:-2] + (-1,)) @ self._GW
 
     # -- apply --------------------------------------------------------------
-    def apply(self, u: torch.Tensor, p: torch.Tensor):
-        """(ru, rp); u: [..., dim, *dofgrid], p: [..., *cells, n_ploc]
-        (mode "none": linear Stokes)."""
+    def apply(self, u: torch.Tensor, p: torch.Tensor, mode: str = "none",
+              u_lin: torch.Tensor | None = None, mask_input: bool = True):
+        """(ru, rp); u: [..., dim, *dofgrid], p: [..., *cells, n_ploc].
+        mode "none" is linear Stokes (the Navier modes are not ported);
+        mask_input=False reads the eliminated velocity dofs too (the strong
+        Dirichlet lift), the output stays masked."""
+        if mode != "none":
+            raise NotImplementedError(f"operator mode {mode!r}: the "
+                                      "Navier-Stokes modes are not ported")
         dim, k = self.dim, self.u_degree
         C = int(np.prod(self.cells))
         lead = u.shape[:-dim - 1]
-        uc = cell_gather(u * self.mask_u, self.cells, k).reshape(
-            lead + (dim, C, -1))
+        if mask_input:
+            u = u * self.mask_u
+        uc = cell_gather(u, self.cells, k).reshape(lead + (dim, C, -1))
         g = self._grad_phys(uc)                    # [..., c, C, d, Q]
         div = torch.diagonal(g, dim1=-4, dim2=-2).sum(-1)   # [..., C, Q]
         p_q = self._p_at_quad(p)                   # [..., C, Q]
@@ -132,6 +181,9 @@ class StokesOperator:
         ru = self._int_grad_phys(t)                # [..., c, C, A]
         ru = cell_scatter(ru.reshape(lead + (dim,) + self.cells
                                      + (k + 1,) * dim), self.cells, k)
+        if self.weak_faces:
+            ru_n, rp_n = self.apply_nitsche(u, p)
+            ru, rp = ru + ru_n, rp + rp_n
         return ru * self.mask_u, rp
 
     def apply_flat(self, x: torch.Tensor) -> torch.Tensor:
@@ -139,18 +191,50 @@ class StokesOperator:
         ru, rp = self.apply(u, p)
         return self.pack(ru, rp)
 
+    # -- cell-local layout ----------------------------------------------------
+    def local_maps(self):
+        """(lidx (C, W), src (n, 2, .., 2)) int64 NumPy, W = dim A +
+        n_ploc: lidx[c, w] is the flat index into one block's [n_u + n_p]
+        vector of cell c's local entry w (velocity component-major, then
+        the pressure modes); src lists each flat entry's positions in a
+        flat (C, W) cell-local array as utils/assembly.py::overlap_sources
+        does (the pressure modes have one each), C W where there is none,
+        so that their sum over the trailing axes, last first, is the
+        overlap-add of the velocity in cell_scatter's order."""
+        dim, k = self.dim, self.u_degree
+        C = int(np.prod(self.cells))
+        A = (k + 1) ** dim
+        W = dim * A + self.n_ploc
+        n_s = int(np.prod(self.dof_shape_u))
+        g = cell_dof_indices(self.cells, k)
+        lidx = np.concatenate(
+            [g + c * n_s for c in range(dim)]
+            + [self.n_u + np.arange(C)[:, None] * self.n_ploc
+               + np.arange(self.n_ploc)[None, :]], axis=1)
+        src_s = overlap_sources(self.cells, k)              # into (C, A)
+        cell, a = np.divmod(src_s, A)
+        none = src_s == C * A
+        src_u = [np.where(none, C * W, cell * W + c * A + a)
+                 for c in range(dim)]
+        src_p = np.full((C * self.n_ploc,) + (2,) * dim, C * W, np.int64)
+        src_p[(slice(None),) + (1,) * dim] = (
+            np.arange(C)[:, None] * W + dim * A
+            + np.arange(self.n_ploc)[None, :]).reshape(-1)
+        return lidx, np.concatenate(src_u + [src_p])
+
     # -- element matrices for the Vanka patches -----------------------------
-    def element_matrices(self):
+    def element_matrices(self, masked: bool = True):
         """(E_uu_scalar, E_up, E_pu): E_uu_scalar = nu-scaled scalar Laplace
-        element matrices [C, A, A] (identical per component, Dirichlet rows/
-        cols eliminated); E_up [C, dim*A, n_ploc] (u rows component-major):
-        -int d_c phi_a psi_m; E_pu [C, n_ploc, dim*A]: +int psi_m d_c
-        phi_a."""
+        element matrices [C, A, A] (identical per component); E_up [C,
+        dim*A, n_ploc] (u rows component-major): -int d_c phi_a psi_m;
+        E_pu [C, n_ploc, dim*A]: +int psi_m d_c phi_a.  The eliminated
+        velocity rows/cols are zeroed unless masked is False.  The Nitsche
+        face terms are face_element_matrices'."""
         dim, k = self.dim, self.u_degree
         lap = LaplaceMassOperator(self.mesh, k, self.n_q, 0.0,
                                   self.viscosity, dtype=self.dtype,
-                                  device=self.device)
-        E_uu = lap.element_matrices()
+                                  device=self.device, mask=self.mask_u_np)
+        E_uu = lap.element_matrices(masked)
         _, Grad = lap._basis_tensors()
         C = int(np.prod(self.cells))
         A = (k + 1) ** dim
@@ -165,7 +249,207 @@ class StokesOperator:
             jf = float(self.jinv_diag[c])
             parts.append(-torch.einsum("cq,aq,mq->cam", wq * jf, Gc, Pq))
         E_up = torch.cat(parts, dim=1)
-        mloc = cell_gather(self.mask_u, self.cells, k).reshape(C, A)
-        E_up = E_up * torch.cat([mloc] * dim, dim=1)[:, :, None]
+        if masked:
+            mloc = cell_gather(self.mask_u, self.cells, k).reshape(C, A)
+            E_up = E_up * torch.cat([mloc] * dim, dim=1)[:, :, None]
         E_pu = -E_up.transpose(1, 2)
         return E_uu, E_up, E_pu
+
+    # -- Nitsche weak boundary faces -----------------------------------------
+    def _face_setup(self, d0: int, side: int) -> dict:
+        """Per-face tables (stfem_tpu ops/stokes.py::_face_setup): the
+        normal-derivative weights of the edge node row (k+1,), the face
+        quadrature weights [*cells_oth, *q_oth], the face size hf
+        [*cells_oth, 1..], the normal cell size h0, the modal pressure
+        trace [n_ploc, Qf] and the physical face quadrature points
+        [*cells_oth, *q_oth, dim]."""
+        dim, k, mesh, nq = self.dim, self.u_degree, self.mesh, self.n_q
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                         device=self.device)
+        edge_x = 0.0 if side == 0 else 1.0
+        n_sign = -1.0 if side == 0 else 1.0
+        oth = [d for d in range(dim) if d != d0]
+        cells_oth = tuple(self.cells[d] for d in oth)
+        m = dim - 1
+        qx, qw = gauss(nq)
+        D1e = LagrangeBasis(np.asarray(q_nodes_1d(k))).deriv_matrix(
+            np.array([edge_x]))[0]
+        jxw = np.ones(cells_oth + (nq,) * m)
+        hf = np.ones(cells_oth)
+        for i, d in enumerate(oth):
+            cshape, qshape, hshape = [1] * (2 * m), [1] * (2 * m), [1] * m
+            cshape[i], qshape[m + i], hshape[i] = self.cells[d], nq, \
+                self.cells[d]
+            steps = np.full(self.cells[d], mesh.h[d])
+            jxw = jxw * steps.reshape(cshape) * qw.reshape(qshape)
+            hf = hf * steps.reshape(hshape)
+        hf = (hf ** (1.0 / max(m, 1))).reshape(cells_oth + (1,) * m)
+        h0 = float(mesh.h[d0])
+        exps = dgp_exponents(dim, self.p_degree)
+        Pqf = np.ones((len(exps),) + (nq,) * m)
+        for j, e in enumerate(exps):
+            Pqf[j] *= shifted_legendre_value(e[d0], np.array([edge_x]))[0]
+            for i, d in enumerate(oth):
+                shape = [1] * m
+                shape[i] = nq
+                Pqf[j] = Pqf[j] * shifted_legendre_value(
+                    e[d], qx).reshape(shape)
+        coords = np.zeros(cells_oth + (nq,) * m + (dim,))
+        coords[..., d0] = mesh.lower[d0] if side == 0 else mesh.upper[d0]
+        for i, d in enumerate(oth):
+            v = mesh.axis_vertices(d)
+            pos = v[:-1, None] + np.diff(v)[:, None] * qx[None, :]
+            shape = [1] * (2 * m)
+            shape[i], shape[m + i] = self.cells[d], nq
+            coords[..., d] = pos.reshape(shape)
+        return dict(d0=d0, side=side, n_sign=n_sign, oth=oth,
+                    cells_oth=cells_oth, h0=h0, D1edge_np=D1e,
+                    # d/dn of the layer's k+1 node rows at the face
+                    prof=as_t(D1e * (n_sign / h0)),
+                    jxw=as_t(jxw), jxw_np=jxw, hf=as_t(hf), hf_np=hf,
+                    Pqf=as_t(Pqf.reshape(len(exps), -1)),
+                    Pqf_np=Pqf.reshape(len(exps), -1),
+                    coords=torch.as_tensor(coords, dtype=torch.float64,
+                                           device=self.device))
+
+    def _trace_eval(self, field, cells_oth):
+        """[..., *dofs_oth] -> [..., *cells_oth, *q_oth]."""
+        m = self.dim - 1
+        fc = cell_gather(field, cells_oth, self.u_degree)
+        return _sumfac([self._S1] * m, fc, m)
+
+    def _trace_integrate(self, vals, cells_oth):
+        """Transpose of _trace_eval: [..., *cells_oth, *q_oth] ->
+        [..., *dofs_oth]."""
+        m = self.dim - 1
+        y = _sumfac([self._S1] * m, vals, m, forward=False)
+        return cell_scatter(y, cells_oth, self.u_degree)
+
+    def _layer(self, f: dict):
+        """(start, length) of the boundary cell layer's k+1 node rows
+        along the face normal."""
+        k = self.u_degree
+        n = self.dof_shape_u[f["d0"]]
+        return (0, k + 1) if f["side"] == 0 else (n - k - 1, k + 1)
+
+    def apply_nitsche(self, u: torch.Tensor, p: torch.Tensor):
+        """Weak-face contributions (ru_add, rp_add), u: [..., dim, *grid]
+        (masked by apply() unless its mask_input is False), p: [...,
+        *cells, n_ploc].  Per face, every component at once: the traces
+        of u and of its normal derivative at the face quadrature points,
+        the penalty, consistency and pressure terms, and the adjoint
+        consistency term on the normal derivative of the test functions."""
+        dim = self.dim
+        nu = self.viscosity
+        L = u.ndim - dim - 1
+        ru, rp = torch.zeros_like(u), torch.zeros_like(p)
+        for f in self._faces:
+            d0, n_sign, cells_oth = f["d0"], f["n_sign"], f["cells_oth"]
+            ax = L + 1 + d0                      # the normal axis of u
+            eidx = 0 if f["side"] == 0 else -1
+            start, length = self._layer(f)
+            jxw, hf = f["jxw"], f["hf"]
+            uq = self._trace_eval(u.select(ax, eidx), cells_oth)
+            dn = torch.movedim(u.narrow(ax, start, length), ax, -1) @ f["prof"]
+            dnq = self._trace_eval(dn, cells_oth)   # [..., dim, cells, q]
+            un = n_sign * uq.select(L, d0)
+            p_b = p.select(L + d0, eidx)         # [..., *cells_oth, n_ploc]
+            pq = (p_b @ f["Pqf"]).reshape(un.shape)
+            lead = un.shape[:L + dim - 1]        # [..., *cells_oth]
+            rp.select(L + d0, eidx).add_(
+                -((un * jxw).reshape(lead + (-1,)) @ f["Pqf"].T))
+            t1 = (self.gamma1 / hf) * uq - nu * dnq
+            t1.select(L, d0).add_((self.gamma2 / hf) * n_sign * un
+                                  + n_sign * pq)
+            ru.select(ax, eidx).add_(self._trace_integrate(t1 * jxw,
+                                                           cells_oth))
+            y2 = self._trace_integrate((-nu * uq) * jxw, cells_oth)
+            shape = [1] * (y2.ndim + 1)
+            shape[ax] = length
+            ru.narrow(ax, start, length).add_(
+                y2.unsqueeze(ax) * f["prof"].reshape(shape))
+        return ru, rp
+
+    def nitsche_rhs(self, g_fn, t):
+        """Right-hand side of the weak Dirichlet data g(x, t) (reference
+        StokesNitscheMatrixFreeOperator::vmult): (rhs_u [dim, *grid],
+        rhs_p [*cells, n_ploc]).  g_fn(points [..., dim] float64 tensor,
+        t) returns [..., dim]."""
+        dim = self.dim
+        nu = self.viscosity
+        rhs_u = torch.zeros((dim,) + tuple(self.dof_shape_u),
+                            dtype=self.dtype, device=self.device)
+        rhs_p = torch.zeros(self.p_shape, dtype=self.dtype,
+                            device=self.device)
+        for f in self._faces:
+            d0, n_sign, cells_oth = f["d0"], f["n_sign"], f["cells_oth"]
+            eidx = 0 if f["side"] == 0 else -1
+            start, length = self._layer(f)
+            jxw, hf = f["jxw"], f["hf"]
+            g = torch.movedim(g_fn(f["coords"], t).to(self.dtype), -1, 0)
+            gn = n_sign * g[d0]                  # [*cells_oth, *q_oth]
+            rhs_p.select(d0, eidx).add_(
+                -((gn * jxw).reshape(cells_oth + (-1,)) @ f["Pqf"].T))
+            t1 = (self.gamma1 / hf) * g
+            t1[d0] += (self.gamma2 / hf) * n_sign * gn
+            rhs_u.select(1 + d0, eidx).add_(
+                self._trace_integrate(t1 * jxw, cells_oth))
+            y2 = self._trace_integrate((-nu * g) * jxw, cells_oth)
+            shape = [1] * (y2.ndim + 1)
+            shape[1 + d0] = length
+            rhs_u.narrow(1 + d0, start, length).add_(
+                y2.unsqueeze(1 + d0) * f["prof"].reshape(shape))
+        # contributions landing on eliminated dofs (corners shared with
+        # strong faces) must not enter the residual
+        return rhs_u * self.mask_u, rhs_p
+
+    def face_element_matrices(self):
+        """Per weak face: (d0, side, Fuu, Fup, Fpu), the Nitsche terms of
+        the boundary-layer cells' element matrices (reference
+        compute_matrix_helper incl. faces, operators.h:1472-1494).  Fuu:
+        one (C_layer, A, A) per component; Fup (C_layer, dim*A, n_ploc)
+        with component-major rows; Fpu its transpose with the p-row sign.
+        Built in float64 NumPy, returned in the operator's dtype."""
+        dim, k, nq = self.dim, self.u_degree, self.n_q
+        nu = self.viscosity
+        A = (k + 1) ** dim
+        m = dim - 1
+        Qf = nq ** m
+        S1 = shape_data_1d(k, nq).S
+        locs = np.stack(np.meshgrid(*([np.arange(k + 1)] * dim),
+                                    indexing="ij"), -1).reshape(A, dim)
+        q_idx = np.stack(np.meshgrid(*([np.arange(nq)] * m), indexing="ij"),
+                         -1).reshape(Qf, m)
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
+                                         device=self.device)
+        out = []
+        for f in self._faces:
+            d0, side, oth, n_sign = f["d0"], f["side"], f["oth"], f["n_sign"]
+            C_layer = int(np.prod(f["cells_oth"]))
+            jxwf = f["jxw_np"].reshape(C_layer, Qf)
+            hf = f["hf_np"].reshape(C_layer, 1)
+            edge_loc = 0 if side == 0 else k
+            # trace and normal derivative of every cell basis function at
+            # the face quadrature points
+            tr = (locs[:, d0] == edge_loc).astype(float)[:, None] \
+                * np.ones((1, Qf))
+            Dn = (f["D1edge_np"][locs[:, d0]] * n_sign / f["h0"])[:, None] \
+                * np.ones((1, Qf))
+            for i, d in enumerate(oth):
+                vals = S1[q_idx[:, i][None, :], locs[:, d][:, None]]
+                tr, Dn = tr * vals, Dn * vals
+            pen0 = np.einsum("cq,aq,bq->cab", jxwf, tr, tr)
+            con = (np.einsum("cq,aq,bq->cab", jxwf, tr, Dn)
+                   + np.einsum("cq,aq,bq->cab", jxwf, Dn, tr))
+            Fuu = []
+            for c in range(dim):
+                g = self.gamma1 / hf + (self.gamma2 / hf if c == d0 else 0.0)
+                Fuu.append(as_t(pen0 * g[:, :, None] - nu * con))
+            n_pl = self.n_ploc
+            blk = np.einsum("cq,aq,mq->cam", jxwf, tr, f["Pqf_np"]) * n_sign
+            Fup = np.zeros((C_layer, dim * A, n_pl))
+            Fpu = np.zeros((C_layer, n_pl, dim * A))
+            Fup[:, d0 * A:(d0 + 1) * A, :] = blk          # + p n . v
+            Fpu[:, :, d0 * A:(d0 + 1) * A] = -np.transpose(blk, (0, 2, 1))
+            out.append((d0, side, Fuu, as_t(Fup), as_t(Fpu)))
+        return out

@@ -22,11 +22,14 @@ the same with variable smoothing and power estimates on every full level.
 The tp_01 practical mode (drivers/tp01.py) runs stfem_tpu's GMGParams
 defaults: one sweep, variable smoothing, Identity levels visited, the
 Smoother coarse solve, and a coefficient on every level.  The Stokes
-V-cycle is run_stokes_bench's (build_stmg_stokes below): variable
-smoothing with S = 1 Relaxation sweep, Identity levels visited (their
-smoother returns the defect: deal.II's Richardson steps), and the coarse
-level solved by an assembled pseudo-inverse with the coarse nullspace
-(per-block constant pressure) projected out before and after.
+hierarchy (build_stmg_stokes below) takes GMGParams as stfem_tpu's does:
+the tp_03stokes application runs its defaults with the config's
+smoothing range, run_stokes_bench the same with range 5: variable
+smoothing with S = 1 Relaxation sweep,
+Identity levels visited (their smoother returns the defect: deal.II's
+Richardson steps), and the coarse level solved by an assembled
+pseudo-inverse with the coarse nullspace (per-block constant pressure)
+projected out before and after.
 
 The Chebyshev smoother, the capped/asymmetric smoothing-step knobs, the
 GMRES coarse solve and the estimate cache of stfem_tpu are not ported.
@@ -134,9 +137,9 @@ class GMG:
         reference's default coarse solve, stfem_tpu gmg.py:275-291).
         coarse_null: the normalized nullspace vector of a singular coarse
         system (enclosed-flow Stokes: the per-time-block constant
-        pressure).  Given, the Direct solve is the host FP64 pseudo-inverse
-        with the nullspace projected out of its defect and solution; None,
-        it is the plain inverse."""
+        pressure).  Given, it is projected out of the coarse defect and
+        solution, and the Direct solve is the host FP64 pseudo-inverse;
+        None, the Direct solve is the plain inverse."""
         if coarse not in ("Direct", "Smoother"):
             raise NotImplementedError(f"coarse solve {coarse!r}: only "
                                       "Direct and Smoother are ported")
@@ -185,12 +188,13 @@ class GMG:
         return (flat - (flat @ z)[:, None] * z[None, :]).reshape(x.shape)
 
     def _coarse_solve(self, defect):
-        if self.coarse == "Smoother":
-            return self._apply_smoother(0, defect)
         if self.coarse_null is not None:
             defect = self._project_null(defect)
-        d = defect.to(torch.float32).reshape(-1)
-        out = (self.coarse_Ainv @ d).reshape(defect.shape).to(self.dtype)
+        if self.coarse == "Smoother":
+            out = self._apply_smoother(0, defect)
+        else:
+            d = defect.to(torch.float32).reshape(-1)
+            out = (self.coarse_Ainv @ d).reshape(defect.shape).to(self.dtype)
         if self.coarse_null is not None:
             out = self._project_null(out)
         return out
@@ -438,50 +442,76 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
     return gmg
 
 
-STOKES_SMOOTHING_RANGE = 5.0  # run_stokes_bench's (tf01stokes.json)
-
-
 def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
                       type_: TimeStepType, n_timesteps_at_once: int,
-                      time_step: float, dtype=torch.float32,
-                      device="cuda") -> GMG:
+                      time_step: float, viscosity: float = 1.0,
+                      params: GMGParams | None = None, dtype=torch.float32,
+                      coarsening_type: CoarseningType =
+                      CoarseningType.space_and_time,
+                      time_before_space: bool = False,
+                      space_time_level_first: bool = False,
+                      use_pmg: bool = True,
+                      fe_degree_min: int | None = None,
+                      fe_degree_min_space: int | None = None,
+                      n_timesteps_at_once_min: int | None = None,
+                      poly_coarsening=PolynomialCoarseningSequenceType.bisect,
+                      weak_faces=(), free_faces=(), dg_pressure: bool = True,
+                      weak_obstacle: bool = False, device="cuda") -> GMG:
     """STMG hierarchy for the Stokes slab system on the flat
-    [T, n_u + n_p] layout (stfem_tpu/stmg/gmg.py::build_stmg_stokes with
-    run_stokes_bench's parameters, bench.py:143-156): velocity
-    Q_{fe_degree+1} x DGP(fe_degree) pressure per level, the space p-ladder
-    on the pressure degree, one tau level, block Vanka with the per-step
-    factorization, Relaxation (one sweep, omega from the 20-step power
-    estimate on the flat mask and smoothing range 5), variable smoothing,
-    Identity levels visited, and the assembled FP64 pseudo-inverse coarse
-    solve with the per-block constant pressure projected out.  Unit
-    viscosity; the time ladder stops at degree 1."""
+    [T, n_u + n_p] layout (stfem_tpu/stmg/gmg.py::build_stmg_stokes, with
+    its signature and defaults): velocity Q_{k+1} x DGP(k) pressure per
+    level, the space p-ladder on the pressure degree down to
+    fe_degree_min_space (velocity is always pressure + 1, so it never drops
+    below Q2), the time k-ladder down to fe_degree_min, the tau ladder down
+    to n_timesteps_at_once_min, ordered by get_mg_sequence; block Vanka
+    with the per-step factorization (and the weak_faces' Nitsche terms) on
+    every Relaxation level, omega from the 20-step power estimate on the
+    flat mask and params.smoothing_range; params' smoothing steps,
+    `variable` smoothing and Identity levels.  The coarse level is solved
+    by the assembled FP64 pseudo-inverse whenever it has at most
+    GMG.DIRECT_COARSE_MAX unknowns, else by params' coarse solve; either
+    way the per-block constant pressure (the enclosed flow's nullspace) is
+    projected out of the coarse defect and solution.  The level operators
+    take StokesSystemMatrix's "element" route.  The Chebyshev smoother,
+    free faces, FE_Q pressure and the weak obstacle are not ported and
+    raise."""
     from ..blocks import BlockSlice
     from ..ops.stokes import StokesOperator
     from ..system_stokes import StokesSystemMatrix
     from ..time.tables import get_fe_time_weights_stokes
     from .stokes_level import StokesSpaceTransfer, StokesVanka
 
+    if free_faces or not dg_pressure or weak_obstacle:
+        raise NotImplementedError("free faces, FE_Q pressure and the weak "
+                                  "obstacle are not ported")
+    params = params or GMGParams()
+    if params.coarse_grid_smoother_type not in ("Smoother", "Direct"):
+        raise NotImplementedError(
+            f"coarse solve {params.coarse_grid_smoother_type!r}: only "
+            "Direct and Smoother are ported")
     device = torch.device(device)
-    fe_degree_min = max(fe_degree - 1, 1)
-    bisect = PolynomialCoarseningSequenceType.bisect
-    coarsening = CoarseningType.space_and_time
+    if fe_degree_min is None:
+        fe_degree_min = max(fe_degree - 1, 1)
+    if fe_degree_min_space is None:
+        fe_degree_min_space = fe_degree_min
+    if n_timesteps_at_once_min is None:
+        n_timesteps_at_once_min = max(n_timesteps_at_once // 2, 1)
     u_degree = fe_degree + 1
     n_sp_lvl = mesh_fine.refinement + 1
     meshes = [StructuredMesh(mesh_fine.subdivisions, mesh_fine.lower,
                              mesh_fine.upper, refinement=r)
               for r in range(n_sp_lvl)]
-    poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min, bisect)
-    # the space p-ladder coarsens the PRESSURE degree; velocity is always
-    # pressure + 1, so it never drops below Q2 (stfem_tpu gmg.py:766-782)
+    poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min,
+                                     poly_coarsening)
     poly_space = [p + 1 for p in get_poly_mg_sequence(
-        u_degree - 1, fe_degree_min, bisect)]
+        u_degree - 1, max(int(fe_degree_min_space), 1), poly_coarsening)]
     mg_type_level = get_mg_sequence(
         n_sp_lvl, poly_time, poly_space, n_timesteps_at_once,
-        max(n_timesteps_at_once // 2, 1), MGType.tau, coarsening, False,
-        True, False)
+        n_timesteps_at_once_min, MGType.tau, coarsening_type,
+        time_before_space, use_pmg, space_time_level_first)
     precond_seq = get_precondition_stmg_types(
-        mg_type_level, coarsening, False, False,
-        SupportedSmoothers.Relaxation)
+        mg_type_level, coarsening_type, time_before_space,
+        space_time_level_first, SupportedSmoothers.Relaxation)
     fetw = get_fe_time_weights_sequence(
         type_, time_step, n_timesteps_at_once, mg_type_level, poly_time)
     fetw_stokes = get_fe_time_weights_sequence(
@@ -506,53 +536,72 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
             elif mgt == MGType.tau:
                 na //= 2
     dg = type_ == TimeStepType.DG
+    inner = (params.smoother_inner_iterations
+             if params.smoother_inner_iterations is not None
+             else params.smoothing_steps)
 
-    levels, sops = [], {}
-    for l in range(n_levels):
-        mesh_l = meshes[mesh_idx[l]]
-        u_deg = poly_space[spd_idx[l]]
-        key = (mesh_idx[l], u_deg)
+    def n_blocks(l):
+        rt = poly_time[ntd_idx[l]]
+        return n_at_once[l] * (rt + 1 if dg else rt)
+
+    sops = {}
+
+    def ops(l):
+        key = (mesh_idx[l], poly_space[spd_idx[l]])
         if key not in sops:
-            S = StokesOperator(mesh_l, u_deg, u_deg - 1, u_deg + 1, 1.0,
-                               dtype=dtype, device=device)
-            Mu = LaplaceMassOperator(mesh_l, u_deg, u_deg + 1, 1.0, 0.0,
-                                     dtype=dtype, device=device,
+            u_deg = key[1]
+            S = StokesOperator(meshes[key[0]], u_deg, u_deg - 1, u_deg + 1,
+                               viscosity, dtype=dtype, device=device,
+                               weak_faces=weak_faces)
+            Mu = LaplaceMassOperator(meshes[key[0]], u_deg, u_deg + 1, 1.0,
+                                     0.0, dtype=dtype, device=device,
                                      mask=S.mask_u_np)
             sops[key] = (S, Mu)
-        S, Mu = sops[key]
+        return sops[key]
+
+    # the coarse system is solved directly (stfem_tpu gmg.py:937-957)
+    # whenever it fits: its Vanka smoother then never runs
+    S0 = ops(0)[0]
+    coarse = ("Direct" if n_blocks(0) * (S0.n_u + S0.n_p)
+              <= GMG.DIRECT_COARSE_MAX else params.coarse_grid_smoother_type)
+    levels = []
+    for l in range(n_levels):
+        S, Mu = ops(l)
         matrix = StokesSystemMatrix(S, Mu, fetw[l][0], fetw[l][1],
-                                    type_=type_, precision=None)
-        rt = poly_time[ntd_idx[l]]
-        nt_l = rt + 1 if dg else rt
-        T_l = n_at_once[l] * nt_l
+                                    type_=type_, precision=None,
+                                    route="element")
+        T_l = n_blocks(l)
         lvl = _Level(matrix=matrix, smoother=IdentitySmoother(),
                      n_blocks=T_l, dof_shape=(S.n_u + S.n_p,))
         levels.append(lvl)
-        # level 0 is solved directly: its smoother would never run
-        if l == 0 or precond_seq[l] == SupportedSmoothers.Identity:
+        if (precond_seq[l] == SupportedSmoothers.Identity
+                or (l == 0 and coarse == "Direct")):
             continue
+        nt_l = T_l // n_at_once[l]
         vanka = StokesVanka(S, Mu, fetw_stokes[l][0], fetw_stokes[l][1],
                             BlockSlice(n_at_once[l], 2, nt_l), dtype=dtype)
         omega = 1.0     # degenerate level: every velocity dof constrained
-        if np.sum(S.mask_u_np) != 0:
+        if params.relaxation != 0.0:
+            omega = params.relaxation
+        elif np.sum(S.mask_u_np) != 0:
             # Stokes keeps deal.II's power estimate (the saddle-point P A
-            # spectrum is complex; stfem_tpu gmg.py:858-869)
+            # spectrum is complex; stfem_tpu gmg.py:856-870)
             flat_mask = np.concatenate(
                 [np.tile(S.mask_u_np.reshape(-1), S.dim), np.ones(S.n_p)])
-            info = estimate_eigenvalues(matrix, vanka, (T_l, S.n_u + S.n_p),
-                                        flat_mask, device=device,
-                                        method="power")
+            info = estimate_eigenvalues(
+                matrix, vanka, (T_l, S.n_u + S.n_p), flat_mask,
+                device=device, method="power",
+                n_iterations=params.smoothing_eig_cg_n_iterations,
+                safety_factor=params.eig_safety_factor)
             if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
-                omega = relaxation_parameters(info,
-                                              STOKES_SMOOTHING_RANGE)
-        lvl.smoother = RelaxationSmoother(matrix, vanka, omega, 1)
+                omega = relaxation_parameters(info, params.smoothing_range)
+        lvl.smoother = RelaxationSmoother(matrix, vanka, omega, inner)
 
     transfers = []
     for l in range(1, n_levels):
         mgt = mg_type_level[l - 1]
         deg_hi, deg_lo = poly_space[spd_idx[l]], poly_space[spd_idx[l - 1]]
-        S_hi = sops[(mesh_idx[l], deg_hi)][0]
-        S_lo = sops[(mesh_idx[l - 1], deg_lo)][0]
+        S_hi, S_lo = ops(l)[0], ops(l - 1)[0]
         mesh_hi, mesh_lo = meshes[mesh_idx[l]], meshes[mesh_idx[l - 1]]
         if mgt in (MGType.h, MGType.p):
             if mgt == MGType.h:
@@ -574,17 +623,18 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
                 type_, mgt, rt_hi + 1 if dg else rt_hi,
                 rt_lo + 1 if dg else rt_lo, n_at_once[l], dtype, device))
 
-    # the coarsest saddle system is singular (enclosed-flow constant
-    # pressure): the exact pseudo-inverse solves on range(A), and the
-    # per-block constant pressure is projected out of its defect and
-    # solution (stfem_tpu gmg.py:937-973)
-    S0 = sops[(mesh_idx[0], poly_space[spd_idx[0]])][0]
+    # the enclosed flow's coarse system is singular along the per-block
+    # constant pressure: projected out of the coarse defect and solution
+    # (stfem_tpu gmg.py:958-973)
     zp = np.zeros((int(np.prod(S0.cells)), S0.n_ploc_cell))
     zp[:, 0] = 1.0           # DGP mode 0 = constant
     z = np.concatenate([np.zeros(S0.n_u), zp.reshape(-1)])
     coarse_null = torch.as_tensor(z / np.linalg.norm(z), dtype=dtype,
                                   device=device)
-    gmg = GMG(levels, transfers, dtype, precond_seq, variable=True,
-              skip_identity=False, coarse_null=coarse_null)
+    gmg = GMG(levels, transfers, dtype, precond_seq,
+              variable=params.variable,
+              skip_identity=params.skip_identity_levels,
+              smoothing_steps=params.smoothing_steps,
+              coarse_null=coarse_null, coarse=coarse)
     gmg.mg_type_level = mg_type_level
     return gmg

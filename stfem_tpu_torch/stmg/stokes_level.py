@@ -6,9 +6,9 @@ Reference: the block PreconditionVanka (stmg.h:649-743) with M_mask =
 velocity-only, and MGTwoLevelBlockTransfer applied per variable
 (stmg.h:38-247); everything acts on the flat [T, n_u + n_p] Stokes
 vectors.  The time transfer needs no Stokes form: transfers.TimeTransfer
-mixes the leading time axis of the flat vector as it is.  Only the
-DGP-pressure, strong-Dirichlet case is ported (no Nitsche faces, obstacle
-or FE_Q pressure).
+mixes the leading time axis of the flat vector as it is.  The DGP-pressure
+case with strong or Nitsche faces is ported (no obstacle or FE_Q
+pressure).
 """
 from __future__ import annotations
 
@@ -17,18 +17,22 @@ import torch
 
 from ..blocks import BlockSlice
 from ..mesh.fe_dgp import dgp_child_embedding, dgp_p_embedding
-from ..ops.spatial import LaplaceMassOperator, cell_gather, cell_scatter
+from ..ops.spatial import LaplaceMassOperator, cell_gather, overlap_add
 from ..ops.stokes import StokesOperator
 from ..utils.assembly import band_indices, dof_valence
 from .transfers import SpaceTransfer
 
 
-def _band_flat(op: LaplaceMassOperator, flat_idx: torch.Tensor):
+def _band_flat(op: LaplaceMassOperator, flat_idx: torch.Tensor,
+               extra_E: torch.Tensor | None = None):
     """Flattened banded assembled matrix band[*dofshape, (2k+1)^dim] =
     A[g, g + offset], unit diagonal on constrained dofs
-    (stfem_tpu/stmg/vanka.py::_band_flat)."""
+    (stfem_tpu/stmg/vanka.py::_band_flat).  extra_E: per-cell additions
+    (C, A, A), the Nitsche face terms of the boundary-layer cells."""
     k, dim = op.degree, op.dim
     E = op.element_matrices()        # (C, A, A), constrained rows/cols 0
+    if extra_E is not None:
+        E = E + extra_E
     n_off = (2 * k + 1) ** dim
     band = torch.zeros(int(np.prod(op.dof_shape)) * n_off, dtype=op.dtype,
                        device=op.device)
@@ -67,7 +71,6 @@ class StokesVanka:
         n_pl = S.n_ploc_cell
         n_blocks = blk.n_blocks
         Alpha_st, Beta_st = np.asarray(Alpha_st), np.asarray(Beta_st)
-        self._A_s, self._n_pl = A_s, n_pl
 
         lap = LaplaceMassOperator(S.mesh, k, S.n_q, 0.0, S.viscosity,
                                   dtype=dtype, device=dev, mask=S.mask_u_np)
@@ -107,14 +110,37 @@ class StokesVanka:
             if ok:
                 self.n_steps = n_steps
 
-        Kuu_s = _band_flat(lap, fidx)[fidx]
-        Muu_s = _band_flat(mass, fidx)[fidx]
+        # Nitsche face terms, added onto the boundary-layer cells' element
+        # matrices before the assembly (stfem_tpu stokes_level.py:100-121):
+        # per-component u-u blocks (the normal component has the extra
+        # gamma2 penalty), and the u-p / p-u couplings
+        face_uu = [None] * dim
         _, E_up, E_pu = S.element_matrices()
         E_up, E_pu = E_up.to(dtype), E_pu.to(dtype)
+        if S.weak_faces:
+            face_uu = [torch.zeros((C, A_s, A_s), dtype=dtype, device=dev)
+                       for _ in range(dim)]
+            face_up = torch.zeros_like(E_up)
+            face_pu = torch.zeros_like(E_pu)
+            cell_grid = np.arange(C).reshape(cells)
+            for d0, side, Fuu, Fup, Fpu in S.face_element_matrices():
+                layer = torch.as_tensor(
+                    cell_grid[S._plane(d0, side)].reshape(-1), device=dev)
+                for c in range(dim):
+                    face_uu[c].index_add_(0, layer, Fuu[c].to(dtype))
+                face_up.index_add_(0, layer, Fup.to(dtype))
+                face_pu.index_add_(0, layer, Fpu.to(dtype))
+            E_up, E_pu = E_up + face_up, E_pu + face_pu
+        Muu_s = _band_flat(mass, fidx)[fidx]
         # block-diagonal over the components, rows/cols component-major
-        eye_c = torch.eye(dim, dtype=dtype, device=dev)
-        Kuu, Muu = (torch.einsum("ce,xab->xcaeb", eye_c, E).reshape(
-            C, A_u, A_u) for E in (Kuu_s, Muu_s))
+        Kuu = torch.zeros((C, dim, A_s, dim, A_s), dtype=dtype, device=dev)
+        Muu = torch.zeros_like(Kuu)
+        Kuu_s = None if S.weak_faces else _band_flat(lap, fidx)[fidx]
+        for c in range(dim):
+            Kuu[:, c, :, c, :] = (Kuu_s if Kuu_s is not None else
+                                  _band_flat(lap, fidx, face_uu[c])[fidx])
+            Muu[:, c, :, c, :] = Muu_s
+        Kuu, Muu = Kuu.reshape(C, A_u, A_u), Muu.reshape(C, A_u, A_u)
 
         def assemble(A_tab, B_tab, nb):
             """B_sub [C, P, P] over the first nb blocks (tables indexed
@@ -182,23 +208,27 @@ class StokesVanka:
         T = n_steps * nt
         assert np.array_equal(np.sort(gather), np.arange(T * W)), \
             "the patch blocks must cover every (time position, variable)"
-        self._gather = torch.as_tensor(gather, device=dev)
-        self._scatter = torch.as_tensor(np.argsort(gather), device=dev)
-        self._W = W
+        # one gather from the flat [T, n_u + n_p] residual straight into
+        # the patch order, and the overlap-add back as a gather of each
+        # entry's contributions (bitwise cell_scatter's sums)
+        n = S.n_u + S.n_p
+        lidx, src = S.local_maps()
+        t_of, w_of = np.divmod(gather, W)
+        self._pidx = torch.as_tensor(
+            (t_of[None, :] * n + lidx[:, w_of]).reshape(-1), device=dev)
+        pos = np.argsort(gather)                # (t, w) -> patch position
+        cell, w = np.divmod(src, W)
+        none = src == C * W
+        self._src = torch.as_tensor(np.stack([
+            np.where(none, C * T * W, cell * T * W + pos[t * W + w])
+            for t in range(T)]).reshape(-1), device=dev)
+        self._T, self._n = T, n
 
     def vmult(self, x: torch.Tensor) -> torch.Tensor:
         """x: flat [T, n_u + n_p] residual -> additive patch updates."""
-        S = self.S
-        dim, k, cells = S.dim, S.u_degree, S.cells
         C = self.Binv.shape[0]
-        A_s, n_pl, W = self._A_s, self._n_pl, self._W
-        u, p = S.unpack(x.to(self.dtype))
-        T = u.shape[0]
-        uc = cell_gather(u, cells, k).reshape(T, dim, C, A_s)
-        uc = uc.permute(2, 0, 1, 3).reshape(C, T, dim * A_s)
-        pc = p.reshape(T, C, n_pl).transpose(0, 1)
-        r = torch.cat([uc, pc], dim=2).reshape(C, T * W).index_select(
-            1, self._gather)
+        r = x.to(self.dtype).reshape(-1).index_select(0, self._pidx).reshape(
+            C, -1)
         if self.n_steps > 1:
             n_s = self.n_steps
             y0 = torch.matmul(r.reshape(C, n_s, -1),
@@ -207,15 +237,11 @@ class StokesVanka:
             for s in range(1, n_s):
                 ys.append(torch.baddbmm(y0[:, s, :, None], self.Kappa,
                                         ys[-1][:, :, None], alpha=-1.0)[..., 0])
-            y = torch.stack(ys, dim=1).reshape(C, T * W)
+            y = torch.stack(ys, dim=1).reshape(-1)
         else:
-            y = torch.bmm(self.Binv, r[:, :, None])[..., 0]
-        z = y.index_select(1, self._scatter).reshape(C, T, W)
-        du = z[..., :dim * A_s].reshape(C, T, dim, A_s).permute(1, 2, 0, 3)
-        du = cell_scatter(du.reshape((T, dim) + cells + (k + 1,) * dim),
-                          cells, k)
-        dp = z[..., dim * A_s:].transpose(0, 1).reshape((T,) + S.p_shape)
-        return S.pack(du, dp)
+            y = torch.bmm(self.Binv, r[:, :, None]).reshape(-1)
+        return overlap_add(y, self._src, self.S.dim).reshape(self._T,
+                                                              self._n)
 
 
 class StokesSpaceTransfer:

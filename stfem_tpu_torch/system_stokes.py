@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.spatial import LaplaceMassOperator
+from .mesh.grid import StructuredMesh
+from .ops.spatial import LaplaceMassOperator, overlap_add
 from .ops.stokes import StokesOperator
 from .types import TimeStepType
 from .utils.precision import full_precision
@@ -23,12 +24,24 @@ class StokesSystemMatrix:
     """precision="highest" (the outer operator and the rhs coupling) runs
     every apply under utils.precision.full_precision: never TF32 (the
     round-5 rhs lesson of stfem_tpu, system_stokes.py:81-102).  Level
-    operators inside the preconditioner pass precision=None."""
+    operators inside the preconditioner pass precision=None.
+
+    route "sumfac": the Stokes operator's and the mass operator's own
+    applies, as stfem_tpu computes them.  route "element" (vmult only):
+    one gather of every cell's local (u, p) vector from the flat layout,
+    one matmul with the cell's element matrices (the uniform mesh's
+    Stokes and velocity mass matrices, side by side), the time mixing,
+    the Nitsche face cells' own matrices, and the overlap-add back (in
+    cell_scatter's order): the same operator to rounding, in ~15 launches
+    where the sum-factorised applies take ~230 (~380 with Nitsche faces),
+    for the host-bound V-cycle's level operators."""
 
     def __init__(self, stokes_op: StokesOperator,
                  mass_op: LaplaceMassOperator, a, b, gamma=None, zeta=None,
                  type_: TimeStepType = TimeStepType.DG,
-                 precision: str | None = "highest"):
+                 precision: str | None = "highest", route: str = "sumfac"):
+        if route not in ("sumfac", "element"):
+            raise ValueError(f"route {route!r}")
         self.S, self.M = stokes_op, mass_op
         self.precision = precision
         self.dtype, self.device = stokes_op.dtype, stokes_op.device
@@ -44,51 +57,124 @@ class StokesSystemMatrix:
         self.type_ = type_
         self.T = self.a.shape[0]
         self.n_flat = stokes_op.n_u + stokes_op.n_p
+        self.route = route
+        if route == "element":
+            self._element_setup()
 
-    def vmult(self, x: torch.Tensor) -> torch.Tensor:
+    def _element_setup(self):
+        """Element matrices, the cell-local masks and index maps of the
+        element route.  The mesh is uniform: the unmasked Stokes and
+        velocity mass matrices of one of its cells, in float64 and then
+        the operator's dtype, stand for every cell, and _mloc masks."""
+        S, M = self.S, self.M
+        if M.coefficient is not None or not np.array_equal(M.mask_np,
+                                                           S.mask_u_np):
+            raise ValueError("the element route needs a mass operator "
+                             "without coefficient on the Stokes mask")
+        dim, A = S.dim, (S.u_degree + 1) ** S.dim
+        P = dim * A + S.n_ploc
+        lo = np.asarray(S.mesh.lower, np.float64)
+        cell = StructuredMesh([1] * dim, lo, lo + np.asarray(S.mesh.h))
+        S1 = StokesOperator(cell, S.u_degree, S.p_degree, S.n_q,
+                            S.viscosity, device="cpu")
+        M1 = LaplaceMassOperator(cell, M.degree, M.n_q, M.mass_scaling,
+                                 M.laplace_scaling, device="cpu")
+        E_uu, E_up, E_pu = (E[0] for E in S1.element_matrices(masked=False))
+        E_m = M1.element_matrices(masked=False)[0]
+        E_S = torch.zeros((P, P), dtype=torch.float64)
+        E_M = torch.zeros_like(E_S)
+        for c in range(dim):
+            u = slice(c * A, (c + 1) * A)
+            E_S[u, u], E_M[u, u] = E_uu, E_m
+        E_S[:dim * A, dim * A:], E_S[dim * A:, :dim * A] = E_up, E_pu
+        self._E = torch.cat([E_S.T, E_M.T], dim=1).to(
+            dtype=self.dtype, device=self.device)               # [P, 2P]
+        lidx, src = S.local_maps()
+        self._lidx = torch.as_tensor(lidx.reshape(-1), device=self.device)
+        self._src = torch.as_tensor(src.reshape(-1), device=self.device)
+        mflat = torch.cat([S.mask_u.reshape(-1).expand(dim, -1).reshape(-1),
+                           torch.ones(S.n_p, dtype=self.dtype,
+                                      device=self.device)])
+        self._mloc = mflat[self._lidx].reshape(lidx.shape)      # [C, P]
+        # Nitsche faces: (layer cells, [C_l, P, P] face element matrices)
+        self._faces = []
+        cell_grid = np.arange(lidx.shape[0]).reshape(S.cells)
+        for d0, side, Fuu, Fup, Fpu in S.face_element_matrices():
+            F = torch.zeros((Fup.shape[0], P, P), dtype=self.dtype,
+                            device=self.device)
+            for c in range(dim):
+                F[:, c * A:(c + 1) * A, c * A:(c + 1) * A] = Fuu[c]
+            F[:, :dim * A, dim * A:] = Fup
+            F[:, dim * A:, :dim * A] = Fpu
+            layer = cell_grid[S._plane(d0, side)].reshape(-1)
+            self._faces.append((torch.as_tensor(layer, device=self.device),
+                                F))
+
+    def _vmult_element(self, x):
+        T, C, P = x.shape[0], self._mloc.shape[0], self._mloc.shape[1]
+        loc = x.index_select(-1, self._lidx).reshape(
+            (T, -1, C, P)) * self._mloc
+        y = loc @ self._E                                # [T, B, C, 2P]
+        out = (self.a @ y[..., :P].reshape(T, -1)
+               + self.b @ y[..., P:].reshape(T, -1)).reshape(loc.shape)
+        for layer, F in self._faces:
+            yf = (F @ loc.index_select(2, layer).unsqueeze(-1)).squeeze(-1)
+            out.index_add_(2, layer, (self.a @ yf.reshape(T, -1)).reshape(
+                yf.shape))
+        out = (out * self._mloc).reshape(T, -1, C * P)
+        return overlap_add(out, self._src, self.S.dim).reshape(x.shape)
+
+    def vmult(self, x: torch.Tensor, u_lin: torch.Tensor | None = None,
+              mode: str = "none", mask_input: bool = True) -> torch.Tensor:
         """x: [T, ..., n_u + n_p] (axes between the time axis and the flat
-        dofs are batch)."""
+        dofs are batch).  mode other than "none" (Navier-Stokes) raises in
+        the Stokes operator; mask_input=False reads the eliminated velocity
+        dofs (the strong Dirichlet lift)."""
         if self.precision is not None:
             with full_precision():
-                return self._vmult_impl(x)
-        return self._vmult_impl(x)
+                return self._vmult_impl(x, u_lin, mode, mask_input)
+        return self._vmult_impl(x, u_lin, mode, mask_input)
 
     __call__ = vmult
 
-    def _vmult_impl(self, x):
+    def _vmult_impl(self, x, u_lin=None, mode="none", mask_input=True):
+        if self.route == "element" and mode == "none" and mask_input:
+            return self._vmult_element(x)
         S = self.S
         u, p = S.unpack(x)
-        ru, rp = S.apply(u, p)
-        Mu = self.M.apply(u)
+        ru, rp = S.apply(u, p, mode=mode, u_lin=u_lin, mask_input=mask_input)
+        Mu = self.M.apply(u, mask_input=mask_input)
         dst_u = (torch.einsum("ji,i...->j...", self.a, ru)
                  + torch.einsum("ji,i...->j...", self.b, Mu))
         dst_p = torch.einsum("ji,i...->j...", self.a, rp)
         return S.pack(dst_u, dst_p)
 
-    def vmult_slice(self, prev_u: torch.Tensor,
-                    prev_p: torch.Tensor) -> torch.Tensor:
+    def vmult_slice(self, prev_u: torch.Tensor, prev_p: torch.Tensor,
+                    mask_input: bool = True) -> torch.Tensor:
         """rhs coupling to the previous step value (reference
         SystemMatrixStokes::vmult_slice_add, operators.h:748-782): gamma
         couples the Stokes operator (CGP only, also the p rows), zeta the
-        velocity mass (DG: the jump column)."""
+        velocity mass (DG: the jump column).  mask_input=False reads the
+        eliminated velocity dofs of prev_u (the strong Dirichlet lift)."""
         if self.precision is not None:
             with full_precision():
-                return self._vmult_slice_impl(prev_u, prev_p)
-        return self._vmult_slice_impl(prev_u, prev_p)
+                return self._vmult_slice_impl(prev_u, prev_p, mask_input)
+        return self._vmult_slice_impl(prev_u, prev_p, mask_input)
 
-    def _vmult_slice_impl(self, prev_u, prev_p):
+    def _vmult_slice_impl(self, prev_u, prev_p, mask_input=True):
         S, T = self.S, self.T
         dst_u = torch.zeros((T, S.dim) + tuple(S.dof_shape_u),
                             dtype=self.dtype, device=self.device)
         dst_p = torch.zeros((T,) + tuple(S.p_shape), dtype=self.dtype,
                             device=self.device)
         if self.gamma_nonzero:
-            ru, rp = S.apply(prev_u[None], prev_p[None])
+            ru, rp = S.apply(prev_u[None], prev_p[None],
+                             mask_input=mask_input)
             g = self.gamma[:, 0]
             dst_u = dst_u + g.reshape((T,) + (1,) * (ru.ndim - 1)) * ru
             dst_p = dst_p + g.reshape((T,) + (1,) * (rp.ndim - 1)) * rp
         if self.zeta_nonzero:
-            Mu = self.M.apply(prev_u[None])
+            Mu = self.M.apply(prev_u[None], mask_input=mask_input)
             z = self.zeta[:, 0]
             dst_u = dst_u + z.reshape((T,) + (1,) * (Mu.ndim - 1)) * Mu
         return S.pack(dst_u, dst_p)

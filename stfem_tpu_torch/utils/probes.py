@@ -36,6 +36,20 @@ class PointEvaluator:
             self.cells_of_point.append(ci)
             self.weights.append(w)
 
+    def tensor(self, u: torch.Tensor) -> torch.Tensor:
+        """u: [..., *dofshape] tensor -> [..., n_points] on u's device
+        (no host read-back: a caller batches a row of functionals)."""
+        k, dim = self.degree, self.mesh.dim
+        out = []
+        for ci, w in zip(self.cells_of_point, self.weights):
+            loc = u[(Ellipsis,) + tuple(slice(c * k, c * k + k + 1)
+                                        for c in ci)]
+            for d in reversed(range(dim)):     # contract the last axis
+                loc = loc @ torch.as_tensor(w[d], dtype=u.dtype,
+                                            device=u.device)
+            out.append(loc)
+        return torch.stack(out, dim=-1)
+
     def __call__(self, u) -> np.ndarray:
         """u: [..., *dofshape] (tensor or array) -> [..., n_points] float64
         numpy values."""

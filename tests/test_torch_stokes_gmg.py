@@ -32,7 +32,7 @@ from stfem_tpu_torch.krylov import richardson_solve
 from stfem_tpu_torch.mesh.grid import StructuredMesh
 from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
 from stfem_tpu_torch.ops.stokes import StokesOperator
-from stfem_tpu_torch.stmg.gmg import build_stmg_stokes
+from stfem_tpu_torch.stmg.gmg import GMGParams, build_stmg_stokes
 from stfem_tpu_torch.stmg.smoother import IdentitySmoother
 from stfem_tpu_torch.system_stokes import StokesSystemMatrix
 from stfem_tpu_torch.utils.carry import load_gmg, load_stokes_vanka
@@ -52,7 +52,8 @@ def hierarchies():
     jg = jbuild(jm, 1, jtypes.TimeStepType.DG, NTAO, TAU, viscosity=1.0,
                 dtype=jnp.float32, params=params, fe_degree_min=1)
     tg = build_stmg_stokes(tm, 1, ttypes.TimeStepType.DG, NTAO, TAU,
-                           dtype=F32, device="cpu")
+                           params=GMGParams(smoothing_range=5.0), dtype=F32,
+                           device="cpu")
     return jm, tm, jg, tg
 
 
@@ -129,7 +130,8 @@ def test_stokes_vcycle_with_jax_factors(hierarchies):
     # a hierarchy of its own: loading stfem_tpu's factors must not leak
     # into the other tests
     tg = build_stmg_stokes(tm, 1, ttypes.TimeStepType.DG, NTAO, TAU,
-                           dtype=F32, device="cpu")
+                           params=GMGParams(smoothing_range=5.0), dtype=F32,
+                           device="cpu")
     omegas = [None] * len(jg.levels)
     for l, jl, tl in _relaxation_levels(jg, tg):
         omegas[l] = float(jl.smoother.omega)
