@@ -104,6 +104,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      slabs; u, p and the functionals rows) on the card against the CPU
      within 1e-8, iterations within 1.
      The path runs none of K1-K5 (launches_by_path "tp03stokes": zeros).
+ 13. the DFG channel of tp_03stokes (drivers/tp03stokes.py::run_practical
+     on configs/tp03stokes_dfg_2d.json: 2D Q2 x DGP1, dG(1), weak inflow
+     and walls, do-nothing outflow, strong obstacle): (a) the
+     dfgBenchmarkSquare grid at refinement 5 (288 x 96 cells, 611,332
+     unknowns a slab) for 4 slabs: per slab the iterations, wall, DoF/s,
+     a true FP64 residual within 2x of FGMRES's stop test, c_D, c_L and
+     the divergence norm; the setup, the hierarchy setup and the peak
+     device memory; the fourth slab again and one V-cycle alone under the
+     profiler; (b) the cylinder (gridDescriptor dfgBenchmark) for 2
+     slabs, the same lines without the profile; (c) both grids at
+     refinement 2 (2 slabs) on the card against the CPU: u and p within
+     1e-8 of their largest entry, c_D and c_L within 1e-8 relative,
+     iterations within 1.  The path runs none of K1-K5 (launches_by_path
+     "dfg": zeros).
 Then it prints the nvidia-smi line, a JSON line describing the kernels
 (launches over all main paths and by path),
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -559,6 +573,124 @@ def tp03stokes_phase(wrappers, dev) -> dict:
           f"basis, its smoother batched dense Vanka solves, and stfem_tpu's "
           f"counterpart of this path reaches no Pallas kernel either",
           flush=True)
+    return counts
+
+
+def dfg_phase(wrappers, dev) -> dict:
+    """Phase 13: the tp_03stokes DFG channel on the card (drivers/
+    tp03stokes.py::run_practical, drivers/stokes.py::run_dfg_square, the
+    masked, non-uniform and mapped geometry, free faces, drag/lift) -- (a)
+    configs/tp03stokes_dfg_2d.json (the dfgBenchmarkSquare grid at
+    refinement 5, 288 x 96 cells, 611,332 unknowns a slab) for 4 slabs,
+    slab 3 again and one V-cycle under the profiler; (b) the cylinder
+    (gridDescriptor dfgBenchmark) for 2 slabs; (c) refinement 2, 2 slabs,
+    square and cylinder, on the card against the CPU.  Returns the
+    launches of every wrapper over the phase (the path runs none of
+    K1-K5); raises on any failed check.  Sets the counts to 0 first."""
+    import torch
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.config import Parameters
+    from stfem_tpu_torch.drivers import tp03stokes
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    for w in wrappers.values():
+        w.launches = 0
+    t_phase = time.time()
+    extra = tp03stokes.parse_stokes_extra(str(tp03stokes.CONFIGS
+                                              / "stokes_dfg.json"))
+
+    def config(**over):
+        p = Parameters.parse(str(tp03stokes.DFG_2D), 2)
+        for key, val in over.items():
+            setattr(p, key, val)
+        return p
+
+    def run_main(label, grid, n_slabs, profile):
+        p = config(grid_descriptor=grid)
+        timer, slabs = TimerOutput(), []
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        res = tp03stokes.run_practical(p, extra, p.fe_degree, p.refinement,
+                                       n_slabs_max=n_slabs, device="cuda",
+                                       timer=timer, on_slab=slabs.append)
+        wall = time.time() - t0
+        st = res["n_blocks"] * res["n_dofs"]
+        mesh = res["mesh"]
+        print(f"# dfg {label} refinement {p.refinement} ({mesh.cells[0]} x "
+              f"{mesh.cells[1]} cells, {int(mesh.cell_mask.sum())} "
+              f"active): {res['n_dofs']} "
+              f"unknowns per block, {st} per slab; setup "
+              f"{timer.totals['setup']:.2f} s (hierarchy "
+              f"{timer.totals['setup:gmg']:.2f} s), max memory allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 20:.1f} MiB, "
+              f"run wall {wall:.1f} s", flush=True)
+        ok = len(slabs) == n_slabs
+        for i, (s, w) in enumerate(zip(slabs, timer.times["step"])):
+            m, stats = s["matrix"], s["stats"]
+            rn = float((s["rhs"] - m.vmult(s["x"])).norm())
+            r0 = float((s["rhs"] - m.vmult(s["x0"])).norm())
+            tol = max(1e-12, p.rel_tol * r0)
+            cd, cl = (float(v) for v in res["drag_lift"][i])
+            div = res["divergence"][i]
+            print(f"# dfg {label} slab {i}: FGMRES iterations "
+                  f"{stats.iterations}, slab wall {w:.4f} s, {st / w:.4e} "
+                  f"space-time DoF/s; true FP64 ||r|| {rn:.3e} (/||r0|| "
+                  f"{rn / r0:.3e}) vs FGMRES tol {tol:.3e}; c_D {cd:.8e} "
+                  f"c_L {cl:.8e} divergence {div:.6e}", flush=True)
+            ok = (ok and stats.converged and rn <= 2.0 * tol
+                  and np.isfinite(cd) and np.isfinite(cl)
+                  and np.isfinite(div))
+        if not ok:
+            raise AssertionError(f"dfg {label}: a slab missed its residual "
+                                 "bound or a functional is not finite")
+        if profile:
+            last = slabs[-1]
+            prof = bench_heat.profile_slab(last["resolve"], dev, top=8)
+            v = last["rhs"] / last["rhs"].norm()
+            vprof = bench_heat.profile_slab(
+                lambda: last["preconditioner"](v), dev, top=8)
+            print(f"# dfg {label}: profile of slab {n_slabs - 1} again "
+                  f"(untimed): device busy {prof['device_busy_s']:.4f} s "
+                  f"of {prof['wall_s']:.4f} s wall (share "
+                  f"{prof['device_busy_share']:.4f}), "
+                  f"{prof['n_kernel_launches']} launches over "
+                  f"{last['stats'].iterations} FGMRES iterations; one "
+                  f"V-cycle alone: {vprof['n_kernel_launches']} launches, "
+                  f"{vprof['wall_s']:.4f} s wall, device busy share "
+                  f"{vprof['device_busy_share']:.4f}; top kernels (ms) "
+                  f"{prof['top_kernels_ms'][:5]}; top ops (ms) "
+                  f"{prof['top_ops_ms'][:5]}", flush=True)
+        del slabs, res
+        torch.cuda.empty_cache()
+
+    # (a) the square at refinement 5, 4 slabs; (b) the cylinder, 2 slabs
+    run_main("square", "dfgBenchmarkSquare", 4, True)
+    run_main("cylinder", "dfgBenchmark", 2, False)
+
+    # (c) refinement 2, 2 slabs: the card against the CPU
+    for grid in ("dfgBenchmarkSquare", "dfgBenchmark"):
+        p = config(grid_descriptor=grid, refinement=2)
+        out = {d: tp03stokes.run_practical(p, extra, 1, 2, n_slabs_max=2,
+                                           device=d)
+               for d in ("cuda", "cpu")}
+        g, c = out["cuda"], out["cpu"]
+        worst = max(float(np.abs(g[n] - c[n]).max() / np.abs(c[n]).max())
+                    for n in ("u", "p"))
+        worst_f = float(np.max(np.abs(g["drag_lift"] - c["drag_lift"])
+                               / np.abs(c["drag_lift"])))
+        print(f"# dfg small {grid} refinement 2, 2 slabs: worst difference "
+              f"of u and p relative to their largest entry {worst:.2e}, of "
+              f"c_D and c_L relative {worst_f:.2e} (tol 1e-8 each); FGMRES "
+              f"iterations gpu {g['iterations']} cpu {c['iterations']}",
+              flush=True)
+        if max(worst, worst_f) > 1e-8 or any(
+                abs(a - b) > 1 for a, b in zip(g["iterations"],
+                                               c["iterations"])):
+            raise AssertionError(f"dfg small {grid}: card and CPU differ")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    print(f"# dfg launches {counts}: the DFG channel runs no port kernel "
+          f"(stfem_tpu's counterpart reaches no Pallas call); phase wall "
+          f"{time.time() - t_phase:.1f} s", flush=True)
     return counts
 
 
@@ -1077,6 +1209,14 @@ def main() -> int:
         launches[name] += c
     by_path["tp03stokes"] = counts
     phase_done("tp03stokes")
+
+    # 13. the DFG channel: the square at refinement 5 (4 slabs, profiled),
+    #     the cylinder (2 slabs), small cells against the CPU
+    counts = dfg_phase(wrappers, dev)
+    for name, c in counts.items():
+        launches[name] += c
+    by_path["dfg"] = counts
+    phase_done("dfg")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

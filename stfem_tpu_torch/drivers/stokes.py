@@ -11,8 +11,12 @@ Linf, H1-semi).  run_lid_driven: the practical lid-driven cavity -- the
 x = 1 wall moves tangentially with u_y = u_max sin(pi t / 4), weakly
 (Nitsche) or strongly (interpolated block values, with or without the
 consistent lift), and the functionals file gets the probe velocity, the
-moving wall's force and the divergence norm per time dof.  The
-Navier-Stokes cycle and the DFG channel are not ported.
+moving wall's force and the divergence norm per time dof.
+run_dfg_square: the DFG channel (flow around the obstacle, reference
+stokes_dfg.json) on the dfgBenchmarkSquare grid or its cylinder morph --
+weak inflow with the DFG profile, weak walls, a do-nothing outflow, the
+strong obstacle -- with the obstacle's drag and lift and the divergence
+norm per slab.  The Navier-Stokes cycle is not ported.
 
 Everything runs on `device` (the card unless the caller asks for the
 CPU); each slab reads back its error norms or its functionals rows once.
@@ -516,3 +520,205 @@ def run_lid_driven(refinement: int = 3, fe_degree: int = 1,
     u, p = S.unpack(prev_flat)
     return dict(iterations=iters, u=u.cpu().numpy(), p=p.cpu().numpy(),
                 tau=tau, time=time, n_dofs=S.n_u + S.n_p, n_blocks=T)
+
+
+def dfg_square_mesh(refinement: int = 1, dim: int = 2, vertex_map=None,
+                    map_exact: bool = False) -> StructuredMesh:
+    """The dfgBenchmarkSquare channel: a non-uniform tensor subdivision
+    with the cell column around the obstacle removed (reference
+    grids.h:243-323; 2D: [0,2.2]x[0,0.41], obstacle [0.15,0.25]^2; 3D:
+    [0,2.5]x[0,0.41]^2, the obstacle column at x,y = (0.5, 0.2))."""
+    if dim == 2:
+        x_steps = [0.15, 0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.35, 0.35]
+        y_steps = [0.15, 0.1, 0.16]
+        base_mask = np.ones((len(x_steps), len(y_steps)))
+        base_mask[1, 1] = 0.0
+        steps = [x_steps, y_steps]
+    else:
+        x_steps = [0.3, 0.15, 0.1, 0.15, 0.25, 0.25, 0.25, 0.25, 0.25,
+                   0.25, 0.3]
+        y_steps = [0.15, 0.1, 0.16]
+        z_steps = [0.41 / 3] * 3
+        base_mask = np.ones((len(x_steps), len(y_steps), len(z_steps)))
+        base_mask[2, 1, :] = 0.0
+        steps = [x_steps, y_steps, z_steps]
+    cm = base_mask
+    for d in range(dim):
+        cm = np.repeat(cm, 2 ** refinement, axis=d)
+    return StructuredMesh([1] * dim, [0.0] * dim, None,
+                          refinement=refinement, cell_mask=cm,
+                          axis_steps=steps, vertex_map=vertex_map,
+                          map_exact=map_exact)
+
+
+def dfg_cylinder_map(center, half_width: float = 0.05, radius: float = 0.05,
+                     support: float = 0.14):
+    """A smooth, compactly supported morph (x, y) -> (x, y) that carries
+    the square obstacle boundary {max(|x - cx|, |y - cy|) = half_width}
+    onto the circle of the given radius and is the identity from distance
+    `support` on (stfem_tpu drivers/stokes.py::dfg_cylinder_map; the
+    analogue of the reference's dfgBenchmark manifolds, grids.h:196-242).
+    Acts on the leading two coordinates of [..., dim] float64 tensors
+    (the 3D channel's z passes through); torch.func differentiates it."""
+    cx, cy = center
+
+    def fmap(x):
+        dx = x[..., 0] - cx
+        dy = x[..., 1] - cy
+        r = torch.sqrt(torch.clamp(dx * dx + dy * dy, min=1e-30))
+        m = torch.maximum(torch.abs(dx), torch.abs(dy))
+        # distance along the ray to the square obstacle boundary
+        r_sq = half_width * r / torch.clamp(m, min=1e-30)
+        un = torch.clamp((r - r_sq) / (support - r_sq), 0.0, 1.0)
+        w = 1.0 - un * un * (3.0 - 2.0 * un)     # smoothstep decay
+        s = 1.0 + w * (radius - r_sq) / r
+        # inside the obstacle the pure radial rescale, so the removed
+        # cells deform with their boundary
+        s = torch.where(r < r_sq, radius / torch.clamp(r_sq, min=1e-30), s)
+        out = [cx + dx * s, cy + dy * s]
+        out += [x[..., d] for d in range(2, x.shape[-1])]
+        return torch.stack(out, dim=-1)
+
+    return fmap
+
+
+def dfg_cylinder_mesh(refinement: int = 1, dim: int = 2,
+                      map_exact: bool = True) -> StructuredMesh:
+    """The DFG cylinder channel (reference gridDescriptor dfgBenchmark):
+    the dfgBenchmarkSquare grid morphed so that the obstacle is the
+    cylinder of diameter 0.1 at (0.2, 0.2) (2D; x,y = (0.5, 0.2) through
+    z in 3D)."""
+    center = (0.2, 0.2) if dim == 2 else (0.5, 0.2)
+    return dfg_square_mesh(refinement, dim,
+                           vertex_map=dfg_cylinder_map(center),
+                           map_exact=map_exact)
+
+
+def run_dfg_square(refinement: int = 1, fe_degree: int = 1,
+                   type_: TimeStepType = TimeStepType.DG,
+                   viscosity: float = 1e-3, u_mean: float = 0.2,
+                   dfg_benchmark: int = 3, end_time: float = 8.0,
+                   tau: float = 1.0 / 16.0, n_slabs: int = 4,
+                   preconditioner_factory=None, gmres_maxiter: int = 100,
+                   rel_tol: float = 1e-8, cylinder: bool = False,
+                   weak_obstacle: bool = False, device="cuda", timer=None,
+                   on_slab=None) -> dict:
+    """Flow around the obstacle (the DFG 2D benchmark's geometry,
+    reference tests/tp_03stokes.cc + stokes_dfg.json): weak (Nitsche)
+    inflow with the DFG parabolic profile (sin(pi t / 8) for
+    dfg_benchmark 3, else a 0.1 s ramp), weak no-slip walls, a do-nothing
+    outflow and the strongly eliminated obstacle, from rest, one step of
+    tau per slab, n_slabs slabs (end_time does not cut the march, as in
+    stfem_tpu).  cylinder: the dfgBenchmark grid (the curved cylinder
+    through the exact map) instead of dfgBenchmarkSquare.  weak_obstacle
+    (the Nitsche obstacle) is not ported and raises.  timer and on_slab
+    as in run_stokes_cycle.
+
+    Returns dict(iterations (per slab), u, p (the last block, NumPy),
+    mesh, time, drag_lift [n_slabs, dim] (scaled by 2 / (D u_mean^2 H),
+    D = 0.1, H = 0.41), divergence (per slab), tau, n_dofs, n_blocks)."""
+    if weak_obstacle:
+        raise NotImplementedError("the weak (Nitsche) obstacle is not "
+                                  "ported")
+    device = torch.device(device)
+    scope = timer.scope if timer is not None else (lambda *a, **k:
+                                                   nullcontext())
+    dim = 2
+    is_cgp = type_ == TimeStepType.CGP
+    u_degree, p_degree = fe_degree + 1, fe_degree
+    n_q = u_degree + 1
+    T = fe_degree if is_cgp else fe_degree + 1
+    u_max = u_mean * 1.5   # 2D (reference stokes.h:41)
+    weak_faces = ((0, 0), (1, 0), (1, 1))   # inflow + both walls
+    free_faces = ((0, 1),)                   # do-nothing outflow
+    with scope("setup"):
+        mesh = dfg_cylinder_mesh(refinement) if cylinder \
+            else dfg_square_mesh(refinement)
+        S = StokesOperator(mesh, u_degree, p_degree, n_q, viscosity,
+                           device=device, weak_faces=weak_faces,
+                           free_faces=free_faces)
+        Mu = LaplaceMassOperator(mesh, u_degree, n_q, 1.0, 0.0,
+                                 device=device, mask=S.mask_u_np)
+        a, b, g, z = get_fe_time_weights(type_, fe_degree, tau, 1)
+        matrix = StokesSystemMatrix(S, Mu, a, b)
+        rhs_matrix = StokesSystemMatrix(S, Mu, a, b,
+                                        gamma=g if is_cgp else None,
+                                        zeta=z if is_cgp else g, type_=type_)
+
+        def g_inflow(coords, t):
+            y, x = coords[..., 1], coords[..., 0]
+            if dfg_benchmark == 3:
+                factor = float(np.sin(np.pi * t / 8.0))
+            else:
+                factor = (0.5 - 0.5 * float(np.cos(10.0 * np.pi * t))
+                          if t < 0.1 else 1.0)
+            prof = 4.0 * u_max * y * (0.41 - y) / 0.41 ** 2
+            gx = torch.where(x < 1e-8, prof * factor, 0.0)
+            return torch.stack([gx, torch.zeros_like(gx)], dim=-1)
+
+        t_off, Wn = _time_rows(type_, fe_degree, tau, 1)
+        Wn = torch.as_tensor(Wn, dtype=F64, device=device)
+
+        def assemble_nitsche_rhs(time):
+            rows = [S.pack(*S.nitsche_rhs(g_inflow, time + float(dt)))
+                    for dt in t_off]
+            return Wn @ torch.stack(rows)
+
+        precond = None
+        if preconditioner_factory is not None:
+            ctx = dict(mesh=mesh, fe_degree=fe_degree, u_degree=u_degree,
+                       p_degree=p_degree, type_=type_, viscosity=viscosity,
+                       n_timesteps_at_once=1, time_step=tau, n_q=n_q,
+                       refinement=refinement, weak_faces=weak_faces,
+                       free_faces=free_faces, device=device)
+            with scope("setup:gmg"):
+                precond = preconditioner_factory(ctx)
+        from ..ops.functionals import (compute_divergence_norm,
+                                       compute_drag_lift)
+        # the reference's drag/lift scale 2 / (D u_mean^2 H)
+        # (tp_03stokes.cc:914-917)
+        dl_scale = 2.0 / (0.1 * u_mean ** 2 * 0.41)
+        u_mask_flat = torch.cat([
+            S.mask_u.expand((dim,) + S.dof_shape_u).reshape(-1),
+            torch.ones(S.n_p, dtype=F64, device=device)])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def solve_slab(prev_flat, time):
+        prev_u, prev_p = S.unpack(prev_flat)
+        rhs = (rhs_matrix.vmult_slice(prev_u, prev_p)
+               + assemble_nitsche_rhs(time))
+        x0 = prev_flat.expand(T, -1)
+        res = fgmres(matrix.vmult, rhs, x0,
+                     precondition=precond or (lambda v: v),
+                     maxiter=gmres_maxiter, abstol=1e-12, reltol=rel_tol)
+        return rhs, x0, res
+
+    prev_flat = torch.zeros(S.n_u + S.n_p, dtype=F64, device=device)
+    time, iters, rows = 0.0, [], []
+    for _ in range(n_slabs):
+        with scope("step", sync=device):
+            rhs, x0, res = solve_slab(prev_flat, time)
+        if not res.converged:
+            raise RuntimeError(f"FGMRES stalled at t={time}: "
+                               f"{res.iterations} iterations, residual "
+                               f"{res.residual:.3e}")
+        if on_slab is not None:
+            on_slab(dict(matrix=matrix, rhs=rhs, x0=x0, x=res.x, stats=res,
+                         time=time, time_step=tau, preconditioner=precond,
+                         resolve=lambda p=prev_flat, t=time: solve_slab(p,
+                                                                        t)))
+        iters.append(res.iterations)
+        # the eliminated (obstacle) dofs zeroed: the drag reads them
+        u_time, p_time = S.unpack(res.x * u_mask_flat)
+        rows.append(torch.cat([
+            compute_drag_lift(S, u_time[-1], p_time[-1], dl_scale),
+            compute_divergence_norm(S, u_time[-1])[None]]).cpu())
+        prev_flat = S.pack(u_time[-1], p_time[-1])
+        time += tau
+    u, p = S.unpack(prev_flat)
+    rows = torch.stack(rows).numpy() if rows else np.zeros((0, dim + 1))
+    return dict(iterations=iters, u=u.cpu().numpy(), p=p.cpu().numpy(),
+                mesh=mesh, time=time, drag_lift=rows[:, :dim],
+                divergence=[float(v) for v in rows[:, dim]], tau=tau,
+                n_dofs=S.n_u + S.n_p, n_blocks=T)

@@ -8,7 +8,10 @@ whole batch of space-time blocks at once as
 The block axis is a leading batch dimension.  Dirichlet conditions are
 elimination masks: apply = mask . A(mask . x).  An optional coefficient
 field w, evaluated once per (cell, quadrature point), multiplies both
-terms.  Only the uniform Cartesian geometry (diagonal Jacobian) is ported.
+terms.  The geometry follows stfem_tpu's three cases: one diagonal
+Jacobian for every cell (uniform, also with a cell mask), per-axis
+per-cell inverse steps (a non-uniform tensor grid), or full inverse
+Jacobians per (cell, quadrature point) (an exact vertex map).
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch
 from ..mesh.fe import shape_data_1d
 from ..mesh.grid import StructuredMesh
 
-__all__ = ["LaplaceMassOperator", "cell_gather", "cell_scatter", "overlap_add"]
+__all__ = ["LaplaceMassOperator", "basis_tensors", "cell_gather",
+           "cell_scatter", "geometry_factors", "overlap_add"]
 
 
 def _axis_letters(dim):
@@ -96,11 +100,54 @@ def _sumfac(mats, x, dim, forward=True):
     return torch.einsum(ein, *operands, x)
 
 
+def geometry_factors(geom, cells, dtype, device):
+    """(jfac, jinv) of a Geometry as tensors: jfac[e] the inverse step
+    along axis e -- a 0-d tensor (uniform) or [1.., cells[e], ..1] over
+    [*cells, *q] (axis steps) -- and None, or None and the inverse
+    Jacobians [*cells, *q, dim, dim] (mapped)."""
+    dim = len(cells)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                     device=device)
+    if geom.jinv is not None:
+        return None, as_t(geom.jinv)
+    if geom.jinv_axis is not None:
+        jfac = []
+        for e in range(dim):
+            shape = [1] * (2 * dim)
+            shape[e] = cells[e]
+            jfac.append(as_t(geom.jinv_axis[e]).reshape(shape))
+        return jfac, None
+    jinv = as_t(geom.jinv_diag)
+    return [jinv[e] for e in range(dim)], None
+
+
+def basis_tensors(dim: int, k: int, nq: int):
+    """Full-cell Q_k basis arrays at the tensor Gauss points: values
+    Phi[A, Q] and reference gradients GradHat[e, A, Q] (numpy)."""
+    sd = shape_data_1d(k, nq)
+    S, D = sd.S, sd.D
+    A, Q = (k + 1) ** dim, nq ** dim
+    Phi = np.ones((A, Q))
+    Grad = np.ones((dim, A, Q))
+    a_idx = np.stack(np.meshgrid(*[np.arange(k + 1)] * dim,
+                                 indexing="ij"), -1).reshape(A, dim)
+    q_idx = np.stack(np.meshgrid(*[np.arange(nq)] * dim,
+                                 indexing="ij"), -1).reshape(Q, dim)
+    for d in range(dim):
+        Phi *= S[q_idx[:, d][None, :], a_idx[:, d][:, None]]
+        for e in range(dim):
+            Grad[e] *= (D if d == e else S)[q_idx[:, d][None, :],
+                                            a_idx[:, d][:, None]]
+    return Phi, Grad
+
+
 class LaplaceMassOperator:
     """c_M (w u, v) + c_K (w grad u, grad v) on Q_degree elements of a
-    uniform Cartesian mesh, w = 1 or the coefficient field (a callable on
+    structured mesh, w = 1 or the coefficient field (a callable on
     [..., dim] points, reference include/operators.h:1060-1087); tensors
-    live on `device` in `dtype`."""
+    live on `device` in `dtype`.  jfac[e] is the inverse step along axis
+    e (a scalar, or per cell broadcastable against [*cells, *q]); jinv
+    the full inverse Jacobians of a mapped mesh (then jfac is None)."""
 
     def __init__(self, mesh: StructuredMesh, degree: int, n_q: int,
                  mass_scaling: float, laplace_scaling: float,
@@ -120,11 +167,6 @@ class LaplaceMassOperator:
         self._sd = sd
         self.S = torch.as_tensor(sd.S, dtype=dtype, device=self.device)
         self.D = torch.as_tensor(sd.D, dtype=dtype, device=self.device)
-        geom = mesh.geometry(n_q)
-        self.jxw = torch.as_tensor(geom.jxw, dtype=dtype, device=self.device)
-        jinv = torch.as_tensor(geom.jinv_diag, dtype=dtype,
-                               device=self.device)
-        self.jfac = [jinv[e] for e in range(self.dim)]
         if mask is None:
             mask = mesh.boundary_dof_mask(degree)
         self.mask_np = np.asarray(mask)
@@ -139,12 +181,22 @@ class LaplaceMassOperator:
                 coefficient(mesh.quad_coordinates(n_q)), np.float64)
             self.coeff = torch.as_tensor(self.coeff_np, dtype=dtype,
                                          device=self.device)
+        self._set_geometry(mesh.geometry(n_q))
+
+    def _set_geometry(self, geom):
+        """The quadrature weights jxw, the inverse-Jacobian factors (see
+        geometry_factors) and the folded weights w of a Geometry."""
+        self.geom = geom
+        self.jxw = torch.as_tensor(geom.jxw, dtype=self.dtype,
+                                   device=self.device)
+        self.jfac, self.jinv = geometry_factors(geom, self.cells, self.dtype,
+                                                self.device)
         self.w = self.jxw if self.coeff is None else self.jxw * self.coeff
 
     def weights_np(self) -> np.ndarray:
         """jxw times the coefficient in float64, broadcast to [*cells,
         *q]."""
-        w = self.mesh.geometry(self.n_q).jxw
+        w = self.geom.jxw
         if self.coeff_np is not None:
             w = w * self.coeff_np
         return np.broadcast_to(w, tuple(self.cells) + (self.n_q,) * self.dim)
@@ -161,37 +213,30 @@ class LaplaceMassOperator:
         if cM != 0.0:
             val = _sumfac([S] * dim, u, dim) * (cM * w)
             acc = _sumfac([S] * dim, val, dim, forward=False)
-        if cK != 0.0:
+        if cK != 0.0 and self.jinv is None:
             for e in range(dim):
                 mats = [D if d == e else S for d in range(dim)]
                 t = _sumfac(mats, u, dim) * (cK * w) * self.jfac[e] ** 2
                 contrib = _sumfac(mats, t, dim, forward=False)
                 acc = contrib if acc is None else acc + contrib
-        return cell_scatter(acc, self.cells, k) * self.mask
-
-    def _basis_tensors(self):
-        """Full-cell basis arrays Phi[A, Q], GradHat[e, A, Q] (numpy)."""
-        dim, k, nq = self.dim, self.degree, self.n_q
-        S, D = self._sd.S, self._sd.D
-        A, Q = (k + 1) ** dim, nq ** dim
-        Phi = np.ones((A, Q))
-        Grad = np.ones((dim, A, Q))
-        a_idx = np.stack(np.meshgrid(*[np.arange(k + 1)] * dim,
-                                     indexing="ij"), -1).reshape(A, dim)
-        q_idx = np.stack(np.meshgrid(*[np.arange(nq)] * dim,
-                                     indexing="ij"), -1).reshape(Q, dim)
-        for d in range(dim):
-            Phi *= S[q_idx[:, d][None, :], a_idx[:, d][:, None]]
+        elif cK != 0.0:
+            ji = self.jinv                               # [*cells, *q, e, d]
+            mats = [[D if d == e else S for d in range(dim)]
+                    for e in range(dim)]
+            ghat = [_sumfac(mats[e], u, dim) for e in range(dim)]
+            gphys = [sum(ghat[e] * ji[..., e, d] for e in range(dim))
+                     * (cK * w) for d in range(dim)]
             for e in range(dim):
-                Grad[e] *= (D if d == e else S)[q_idx[:, d][None, :],
-                                                a_idx[:, d][:, None]]
-        return Phi, Grad
+                t = sum(gphys[d] * ji[..., e, d] for d in range(dim))
+                contrib = _sumfac(mats[e], t, dim, forward=False)
+                acc = contrib if acc is None else acc + contrib
+        return cell_scatter(acc, self.cells, k) * self.mask
 
     def element_matrices(self, masked: bool = True) -> torch.Tensor:
         """Exact per-cell element matrices E[C, A, A] with Dirichlet rows
         and columns eliminated (zeroed) unless masked is False."""
         dim, k = self.dim, self.degree
-        Phi, Grad = self._basis_tensors()
+        Phi, Grad = basis_tensors(dim, k, self.n_q)
         Phi = torch.as_tensor(Phi, dtype=self.dtype, device=self.device)
         Grad = torch.as_tensor(Grad, dtype=self.dtype, device=self.device)
         C = self.mesh.n_cells
@@ -203,11 +248,16 @@ class LaplaceMassOperator:
         E = torch.zeros((C, A, A), dtype=self.dtype, device=self.device)
         if cM != 0.0:
             E = E + cM * torch.einsum("cq,aq,bq->cab", wq, Phi, Phi)
-        if cK != 0.0:
+        if cK != 0.0 and self.jinv is None:
             for e in range(dim):
-                E = E + cK * torch.einsum("cq,aq,bq->cab",
-                                          wq * self.jfac[e] ** 2,
+                sfac = torch.broadcast_to(self.jfac[e] ** 2, self.cells
+                                          + (1,) * dim).reshape(C, 1)
+                E = E + cK * torch.einsum("cq,aq,bq->cab", wq * sfac,
                                           Grad[e], Grad[e])
+        elif cK != 0.0:
+            gphys = torch.einsum("cqed,eaq->cdaq",
+                                 self.jinv.reshape(C, Q, dim, dim), Grad)
+            E = E + cK * torch.einsum("cq,cdaq,cdbq->cab", wq, gphys, gphys)
         if not masked:
             return E
         mloc = cell_gather(self.mask, self.cells, k).reshape(C, -1)

@@ -1,6 +1,7 @@
 """Matrix-free Stokes saddle-point operator on structured meshes
-(counterpart of stfem_tpu/ops/stokes.py::StokesOperator; the
-DGP-pressure, uniform-mesh case with strong or Nitsche velocity faces).
+(counterpart of stfem_tpu/ops/stokes.py::StokesOperator; the DGP-pressure
+case with strong, Nitsche or free velocity faces, on uniform, masked,
+non-uniform and exactly mapped meshes).
 
 Weak form per cell (reference include/operators.h:1525-1575):
   u-row:  nu (grad u, grad v) - (p, div v)
@@ -15,7 +16,11 @@ p = x[:, n_u:].reshape(T, *cells, n_ploc).
 The quadrature is stfem_tpu's (the same 1D shape data and Gauss rule);
 the per-axis sum factorization becomes one matmul against the full-cell
 basis gradients (A x dim*Q, 27 x 81 for Q2 with 3 points per axis), which
-computes the same sums in fewer, larger launches.
+computes the same sums in fewer, larger launches.  On a uniform mesh the
+inverse steps and the weights are folded into the two tables; otherwise
+the tables are the reference gradients and the geometry is applied per
+cell: the inverse steps of a non-uniform grid, or the inverse Jacobian
+per (cell, quadrature point) of a mapped one.
 
 Weak faces (reference do_boundary_face_integral_local and
 StokesNitscheMatrixFreeOperator, operators.h:1658-1951): each listed
@@ -23,9 +28,10 @@ boundary face (axis, side) carries Nitsche terms with penalties gamma1 =
 nu penalty1 and gamma2 = penalty2 over the face size, and its velocity
 dofs stay free.  A face's terms are one batched pass over its layer of
 cells, every velocity component at once; the per-face tables are built
-once, at construction.  The Navier modes, the obstacle, CIP, backflow,
-free (do-nothing) faces, FE_Q pressure and mapped meshes are not ported
-and raise.
+once, at construction.  Free (do-nothing) faces are unconstrained and
+carry no term.  A removed cell's velocity dofs are eliminated (the
+strong obstacle of the DFG channel).  The Navier modes, the weak
+obstacle, CIP, backflow and FE_Q pressure are not ported and raise.
 """
 from __future__ import annotations
 
@@ -35,10 +41,11 @@ import torch
 from ..mesh.fe import q_nodes_1d, shape_data_1d
 from ..mesh.fe_dgp import (dgp_exponents, dgp_values_at_tensor_gauss,
                            n_dgp_dofs, shifted_legendre_value)
-from ..mesh.grid import StructuredMesh
+from ..mesh.grid import StructuredMesh, map_jacobians, map_points
 from ..time.quadrature import LagrangeBasis, gauss
 from ..utils.assembly import cell_dof_indices, overlap_sources
-from .spatial import LaplaceMassOperator, _sumfac, cell_gather, cell_scatter
+from .spatial import (LaplaceMassOperator, _sumfac, basis_tensors,
+                      cell_gather, cell_scatter, geometry_factors)
 
 __all__ = ["StokesOperator"]
 
@@ -51,10 +58,13 @@ class StokesOperator:
                  penalty2: float = 10.0, weak_obstacle: bool = False):
         """weak_faces: boundary faces (axis, side) with Nitsche weak
         Dirichlet conditions; they are not eliminated from the velocity
-        mask (corners shared with a strong face stay eliminated)."""
-        if not dg_pressure or free_faces or weak_obstacle:
-            raise NotImplementedError("FE_Q pressure, free faces and the "
-                                      "weak obstacle are not ported")
+        mask (corners shared with a strong face stay eliminated).
+        free_faces: do-nothing faces (the DFG outflow), unconstrained and
+        without a term.  On a masked mesh every dof of a removed cell is
+        eliminated (the strong obstacle)."""
+        if not dg_pressure or weak_obstacle:
+            raise NotImplementedError("FE_Q pressure and the weak obstacle "
+                                      "are not ported")
         self.mesh = mesh
         self.dim = dim = mesh.dim
         self.u_degree = u_degree
@@ -69,20 +79,28 @@ class StokesOperator:
         self.n_ploc = n_dgp_dofs(dim, p_degree)
         as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                          device=self.device)
-        geom = mesh.geometry(n_q)
-        self.jxw = as_t(geom.jxw)
-        self.jinv_diag = np.asarray(geom.jinv_diag, np.float64)
         self.weak_faces = tuple((int(d), int(s)) for d, s in weak_faces)
+        self.free_faces = tuple((int(d), int(s)) for d, s in free_faces)
+        if mesh.vertex_map is not None and (self.weak_faces
+                                            or self.free_faces):
+            self._check_identity_on_boundary()
         self.gamma1 = self.viscosity * float(penalty1)
         self.gamma2 = float(penalty2)
-        # strong faces eliminated, weak faces free (stfem_tpu ops/stokes.py
-        # :136-180)
+        # strong faces eliminated, weak and free faces unconstrained, the
+        # removed cells' dofs eliminated again (stfem_tpu ops/stokes.py
+        # :132-182)
+        unconstrained = self.weak_faces + self.free_faces
         mask = mesh.boundary_dof_mask(u_degree)
-        for d0, side in self.weak_faces:
+        for d0, side in unconstrained:
             mask[self._plane(d0, side)] = 1.0
+        if mesh.cell_mask is not None:
+            k = u_degree
+            for cidx in np.argwhere(mesh.cell_mask == 0.0):
+                mask[tuple(slice(int(c) * k, int(c) * k + k + 1)
+                           for c in cidx)] = 0.0
         for d in range(dim):
             for side in (0, 1):
-                if (d, side) not in self.weak_faces:
+                if (d, side) not in unconstrained:
                     mask[self._plane(d, side)] = 0.0
         self.mask_u_np = mask
         self.mask_u = as_t(mask)
@@ -90,22 +108,75 @@ class StokesOperator:
         self.Pq = as_t(dgp_values_at_tensor_gauss(dim, p_degree, n_q))
         self.n_u = dim * int(np.prod(self.dof_shape_u))
         self.n_p = int(np.prod(self.cells)) * self.n_ploc
-        # full-cell basis gradients, physical (x jinv): G[a, e*Q + q]; and
-        # the integration weights folded in for the transposed apply
-        lap = LaplaceMassOperator(mesh, u_degree, n_q, 0.0, 1.0,
-                                  dtype=torch.float64, device="cpu")
-        _, grad = lap._basis_tensors()                      # [dim, A, Q]
-        A, Q = grad.shape[1], grad.shape[2]
-        gphys = grad * self.jinv_diag[:, None, None]
-        self._G = as_t(np.transpose(gphys, (1, 0, 2)).reshape(A, dim * Q))
-        w = np.asarray(geom.jxw, np.float64).reshape(1, 1, Q)
-        gw = np.transpose(gphys * w, (0, 2, 1))             # [dim, Q, A]
-        self._GW = as_t(gw.reshape(dim * Q, A))
+        self.uniform = mesh.uniform
+        self._grad_ref = basis_tensors(dim, u_degree, n_q)[1]   # [dim, A, Q]
+        self._set_geometry(mesh.geometry(n_q))
         self._eye = torch.eye(dim, dtype=dtype, device=self.device).reshape(
             dim, 1, dim, 1)
         self._S1 = as_t(shape_data_1d(u_degree, n_q).S)      # (q, k+1)
         self._faces = [self._face_setup(d0, side)
                        for d0, side in self.weak_faces]
+
+    def _set_geometry(self, geom):
+        """The geometry tables of the apply from a Geometry: on a uniform
+        mesh the full-cell basis gradients, physical (x jinv): G[a, e*Q +
+        q], and with the integration weights folded in for the transposed
+        apply; otherwise the reference gradients and their transpose, and
+        per cell the inverse steps [C, dim, 1] (and x weights [C, dim,
+        Q]) or jinv[c, q, e, d] as [C, e, d, Q] (and x weights)."""
+        dim, C = self.dim, int(np.prod(self.cells))
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                         device=self.device)
+        self.geom = geom
+        self.jxw = as_t(geom.jxw)
+        self.jinv_diag = (None if geom.jinv_diag is None
+                          else np.asarray(geom.jinv_diag, np.float64))
+        self.jfac, self.jinv = geometry_factors(geom, self.cells, self.dtype,
+                                                self.device)
+        grad = self._grad_ref
+        A, Q = grad.shape[1], grad.shape[2]
+        if self.uniform:
+            gphys = grad * self.jinv_diag[:, None, None]
+            self._G = as_t(np.transpose(gphys, (1, 0, 2)).reshape(A,
+                                                                  dim * Q))
+            w = np.asarray(geom.jxw, np.float64).reshape(1, 1, Q)
+            gw = np.transpose(gphys * w, (0, 2, 1))         # [dim, Q, A]
+            self._GW = as_t(gw.reshape(dim * Q, A))
+            self._wq = self.jxw.reshape(-1)
+            return
+        self._G = as_t(np.transpose(grad, (1, 0, 2)).reshape(A, dim * Q))
+        self._GW = self._G.T.contiguous()
+        self._wq = torch.broadcast_to(
+            self.jxw, self.cells + (self.n_q,) * dim).reshape(C, Q)
+        if self.jinv is None:
+            self._jf = torch.stack([torch.broadcast_to(
+                self.jfac[e], self.cells + (1,) * dim).reshape(C)
+                for e in range(dim)], dim=1)[:, :, None]
+            self._jfw = self._jf * self._wq[:, None, :]
+        else:
+            ji = self.jinv.reshape(C, Q, dim, dim).permute(0, 2, 3, 1)
+            self._ji = ji.contiguous()
+            self._jiw = (ji * self._wq[:, None, None, :]).contiguous()
+
+    def _check_identity_on_boundary(self):
+        """Faces use the axis-aligned tensor-face tables: on a mapped mesh
+        the map must be the identity, with an identity Jacobian, on the
+        outer boundary (the DFG morph has compact support around the
+        obstacle; stfem_tpu ops/stokes.py:96-116)."""
+        mesh, dim = self.mesh, self.dim
+        axes = [mesh.axis_vertices(d) for d in range(dim)]
+        base = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+        for d in range(dim):
+            for side in (0, 1):
+                pts = base[self._plane(d, side, dim)].reshape(-1, dim)
+                ok_v = np.allclose(map_points(mesh.vertex_map, pts), pts,
+                                   atol=1e-12)
+                ok_j = np.allclose(map_jacobians(mesh.vertex_map, pts),
+                                   np.eye(dim), atol=1e-10)
+                if not (ok_v and ok_j):
+                    raise ValueError("faces on a mapped mesh need the map "
+                                     "to be the identity (with its "
+                                     "Jacobian) on the outer boundary")
 
     def _plane(self, d0: int, side: int, ndim: int | None = None):
         """Index of the boundary dof plane (axis d0, side) of a grid."""
@@ -148,11 +219,20 @@ class StokesOperator:
     def _grad_phys(self, uc: torch.Tensor) -> torch.Tensor:
         """Cell-local values [..., C, A] -> physical gradients at the quad
         points [..., C, dim, Q]."""
-        return (uc @ self._G).reshape(uc.shape[:-1] + (self.dim, -1))
+        g = (uc @ self._G).reshape(uc.shape[:-1] + (self.dim, -1))
+        if self.uniform:
+            return g
+        if self.jinv is None:
+            return g * self._jf
+        # d_d u = sum_e d_e u (reference) jinv[e, d]
+        return (g.unsqueeze(-2) * self._ji).sum(-3)
 
     def _int_grad_phys(self, t: torch.Tensor) -> torch.Tensor:
         """[..., C, dim, Q] -> sum_d (d_d v, t[d]) against the cell-local
         test functions [..., C, A] (includes the jxw measure)."""
+        if not self.uniform:
+            t = (t * self._jfw if self.jinv is None
+                 else (t.unsqueeze(-3) * self._jiw).sum(-2))
         return t.reshape(t.shape[:-2] + (-1,)) @ self._GW
 
     # -- apply --------------------------------------------------------------
@@ -174,8 +254,7 @@ class StokesOperator:
         g = self._grad_phys(uc)                    # [..., c, C, d, Q]
         div = torch.diagonal(g, dim1=-4, dim2=-2).sum(-1)   # [..., C, Q]
         p_q = self._p_at_quad(p)                   # [..., C, Q]
-        wq = self.jxw.reshape(-1)
-        rp = ((div * wq) @ self._p_basis_at_quad().T).reshape(
+        rp = ((div * self._wq) @ self._p_basis_at_quad().T).reshape(
             lead + self.p_shape)
         t = self.viscosity * g - self._eye * p_q.unsqueeze(-2).unsqueeze(-4)
         ru = self._int_grad_phys(t)                # [..., c, C, A]
@@ -234,20 +313,29 @@ class StokesOperator:
         lap = LaplaceMassOperator(self.mesh, k, self.n_q, 0.0,
                                   self.viscosity, dtype=self.dtype,
                                   device=self.device, mask=self.mask_u_np)
+        lap._set_geometry(self.geom)
         E_uu = lap.element_matrices(masked)
-        _, Grad = lap._basis_tensors()
+        Grad = self._grad_ref
         C = int(np.prod(self.cells))
         A = (k + 1) ** dim
         Q = self.n_q ** dim
         wq = torch.broadcast_to(self.jxw, self.cells + (self.n_q,) * dim
                                 ).reshape(C, Q)
         Pq = self._p_basis_at_quad()
+        Grad = torch.as_tensor(Grad, dtype=self.dtype, device=self.device)
         parts = []
+        if self.jinv is not None:
+            gphys = torch.einsum("cqed,eaq->cdaq",
+                                 self.jinv.reshape(C, Q, dim, dim), Grad)
         for c in range(dim):
-            Gc = torch.as_tensor(Grad[c], dtype=self.dtype,
-                                 device=self.device)
-            jf = float(self.jinv_diag[c])
-            parts.append(-torch.einsum("cq,aq,mq->cam", wq * jf, Gc, Pq))
+            if self.jinv is not None:
+                parts.append(-torch.einsum("cq,caq,mq->cam", wq, gphys[:, c],
+                                           Pq))
+                continue
+            jf = (float(self.jinv_diag[c]) if self.jinv_diag is not None
+                  else self._jf[:, c])
+            parts.append(-torch.einsum("cq,aq,mq->cam", wq * jf, Grad[c],
+                                       Pq))
         E_up = torch.cat(parts, dim=1)
         if masked:
             mloc = cell_gather(self.mask_u, self.cells, k).reshape(C, A)
@@ -280,11 +368,11 @@ class StokesOperator:
             cshape, qshape, hshape = [1] * (2 * m), [1] * (2 * m), [1] * m
             cshape[i], qshape[m + i], hshape[i] = self.cells[d], nq, \
                 self.cells[d]
-            steps = np.full(self.cells[d], mesh.h[d])
+            steps = mesh.steps(d)
             jxw = jxw * steps.reshape(cshape) * qw.reshape(qshape)
             hf = hf * steps.reshape(hshape)
         hf = (hf ** (1.0 / max(m, 1))).reshape(cells_oth + (1,) * m)
-        h0 = float(mesh.h[d0])
+        h0 = float(mesh.steps(d0)[0 if side == 0 else -1])
         exps = dgp_exponents(dim, self.p_degree)
         Pqf = np.ones((len(exps),) + (nq,) * m)
         for j, e in enumerate(exps):

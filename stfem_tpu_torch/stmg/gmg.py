@@ -28,8 +28,9 @@ smoothing range, run_stokes_bench the same with range 5: variable
 smoothing with S = 1 Relaxation sweep,
 Identity levels visited (their smoother returns the defect: deal.II's
 Richardson steps), and the coarse level solved by an assembled
-pseudo-inverse with the coarse nullspace (per-block constant pressure)
-projected out before and after.
+pseudo-inverse, with the coarse nullspace (per-block constant pressure)
+projected out before and after unless a do-nothing face determines the
+pressure (the DFG channel's outflow).
 
 The Chebyshev smoother, the capped/asymmetric smoothing-step knobs, the
 GMRES coarse solve and the estimate cache of stfem_tpu are not ported.
@@ -128,7 +129,8 @@ class GMG:
     def __init__(self, levels, transfers, dtype, precondition_sequence,
                  variable: bool = False, skip_identity: bool = True,
                  coarse_null: torch.Tensor | None = None,
-                 smoothing_steps: int = 1, coarse: str = "Direct"):
+                 smoothing_steps: int = 1, coarse: str = "Direct",
+                 coarse_pinv: bool = False):
         """variable: 2^(max_level - l) x smoothing_steps smoother
         applications on level l.  skip_identity: Identity levels contribute
         nothing (the heat and wave benches); False visits them (stfem_tpu's
@@ -138,8 +140,9 @@ class GMG:
         coarse_null: the normalized nullspace vector of a singular coarse
         system (enclosed-flow Stokes: the per-time-block constant
         pressure).  Given, it is projected out of the coarse defect and
-        solution, and the Direct solve is the host FP64 pseudo-inverse;
-        None, the Direct solve is the plain inverse."""
+        solution.  coarse_pinv: the Direct solve is the host FP64
+        pseudo-inverse (the Stokes saddle systems), else the plain
+        inverse."""
         if coarse not in ("Direct", "Smoother"):
             raise NotImplementedError(f"coarse solve {coarse!r}: only "
                                       "Direct and Smoother are ported")
@@ -153,8 +156,8 @@ class GMG:
         self.smoothing_steps = smoothing_steps
         self.coarse = coarse
         self.coarse_null = coarse_null
-        self.coarse_Ainv = (self._assemble_direct_coarse(
-            coarse_null is not None) if coarse == "Direct" else None)
+        self.coarse_Ainv = (self._assemble_direct_coarse(coarse_pinv)
+                            if coarse == "Direct" else None)
 
     def _assemble_direct_coarse(self, pinv: bool):
         """Dense float32 inverse (or FP64 pseudo-inverse stored in float32)
@@ -470,10 +473,12 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
     `variable` smoothing and Identity levels.  The coarse level is solved
     by the assembled FP64 pseudo-inverse whenever it has at most
     GMG.DIRECT_COARSE_MAX unknowns, else by params' coarse solve; either
-    way the per-block constant pressure (the enclosed flow's nullspace) is
-    projected out of the coarse defect and solution.  The level operators
-    take StokesSystemMatrix's "element" route.  The Chebyshev smoother,
-    free faces, FE_Q pressure and the weak obstacle are not ported and
+    way, unless the flow has a free (do-nothing) face, the per-block
+    constant pressure (the enclosed flow's nullspace) is projected out of
+    the coarse defect and solution.  The mesh ladder keeps the fine mesh's
+    cell mask (strided), base axis steps and vertex map.  The level
+    operators take StokesSystemMatrix's "element" route.  The Chebyshev
+    smoother, FE_Q pressure and the weak obstacle are not ported and
     raise."""
     from ..blocks import BlockSlice
     from ..ops.stokes import StokesOperator
@@ -481,9 +486,9 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
     from ..time.tables import get_fe_time_weights_stokes
     from .stokes_level import StokesSpaceTransfer, StokesVanka
 
-    if free_faces or not dg_pressure or weak_obstacle:
-        raise NotImplementedError("free faces, FE_Q pressure and the weak "
-                                  "obstacle are not ported")
+    if not dg_pressure or weak_obstacle:
+        raise NotImplementedError("FE_Q pressure and the weak obstacle are "
+                                  "not ported")
     params = params or GMGParams()
     if params.coarse_grid_smoother_type not in ("Smoother", "Direct"):
         raise NotImplementedError(
@@ -498,9 +503,17 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
         n_timesteps_at_once_min = max(n_timesteps_at_once // 2, 1)
     u_degree = fe_degree + 1
     n_sp_lvl = mesh_fine.refinement + 1
-    meshes = [StructuredMesh(mesh_fine.subdivisions, mesh_fine.lower,
-                             mesh_fine.upper, refinement=r)
-              for r in range(n_sp_lvl)]
+    meshes = []
+    for r in range(n_sp_lvl):
+        cm = mesh_fine.cell_mask
+        if cm is not None:
+            stride = 2 ** (mesh_fine.refinement - r)
+            cm = cm[(slice(None, None, stride),) * mesh_fine.dim]
+        meshes.append(StructuredMesh(
+            mesh_fine.subdivisions, mesh_fine.lower, mesh_fine.upper,
+            refinement=r, cell_mask=cm,
+            axis_steps=mesh_fine.base_axis_steps(),
+            vertex_map=mesh_fine.vertex_map, map_exact=mesh_fine.map_exact))
     poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min,
                                      poly_coarsening)
     poly_space = [p + 1 for p in get_poly_mg_sequence(
@@ -552,7 +565,7 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
             u_deg = key[1]
             S = StokesOperator(meshes[key[0]], u_deg, u_deg - 1, u_deg + 1,
                                viscosity, dtype=dtype, device=device,
-                               weak_faces=weak_faces)
+                               weak_faces=weak_faces, free_faces=free_faces)
             Mu = LaplaceMassOperator(meshes[key[0]], u_deg, u_deg + 1, 1.0,
                                      0.0, dtype=dtype, device=device,
                                      mask=S.mask_u_np)
@@ -624,17 +637,21 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
                 rt_lo + 1 if dg else rt_lo, n_at_once[l], dtype, device))
 
     # the enclosed flow's coarse system is singular along the per-block
-    # constant pressure: projected out of the coarse defect and solution
-    # (stfem_tpu gmg.py:958-973)
-    zp = np.zeros((int(np.prod(S0.cells)), S0.n_ploc_cell))
-    zp[:, 0] = 1.0           # DGP mode 0 = constant
-    z = np.concatenate([np.zeros(S0.n_u), zp.reshape(-1)])
-    coarse_null = torch.as_tensor(z / np.linalg.norm(z), dtype=dtype,
-                                  device=device)
+    # constant pressure: projected out of the coarse defect and solution;
+    # a do-nothing face determines the pressure, and nothing is projected
+    # (stfem_tpu gmg.py:958-973).  The Direct coarse solve is the
+    # pseudo-inverse either way (stfem_tpu gmg.py:944-957)
+    coarse_null = None
+    if not free_faces:
+        zp = np.zeros((int(np.prod(S0.cells)), S0.n_ploc_cell))
+        zp[:, 0] = 1.0           # DGP mode 0 = constant
+        z = np.concatenate([np.zeros(S0.n_u), zp.reshape(-1)])
+        coarse_null = torch.as_tensor(z / np.linalg.norm(z), dtype=dtype,
+                                      device=device)
     gmg = GMG(levels, transfers, dtype, precond_seq,
               variable=params.variable,
               skip_identity=params.skip_identity_levels,
               smoothing_steps=params.smoothing_steps,
-              coarse_null=coarse_null, coarse=coarse)
+              coarse_null=coarse_null, coarse=coarse, coarse_pinv=True)
     gmg.mg_type_level = mg_type_level
     return gmg

@@ -7,8 +7,10 @@ velocity-only, and MGTwoLevelBlockTransfer applied per variable
 (stmg.h:38-247); everything acts on the flat [T, n_u + n_p] Stokes
 vectors.  The time transfer needs no Stokes form: transfers.TimeTransfer
 mixes the leading time axis of the flat vector as it is.  The DGP-pressure
-case with strong or Nitsche faces is ported (no obstacle or FE_Q
-pressure).
+case with strong, Nitsche or free faces is ported, on uniform, masked,
+non-uniform and mapped meshes (per-cell element matrices there; a removed
+cell's pressure modes have zero rows, which the patch inverse regularizes
+to the identity); the weak obstacle and FE_Q pressure are not.
 """
 from __future__ import annotations
 

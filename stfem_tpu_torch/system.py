@@ -23,7 +23,8 @@ import torch
 from .ops.gridsumfac import GridSumFac, promote
 from .ops.kronfac import KronAssembled
 from .ops.quad_middle import quad_middle
-from .ops.spatial import LaplaceMassOperator, cell_gather, cell_scatter
+from .ops.spatial import (LaplaceMassOperator, basis_tensors, cell_gather,
+                          cell_scatter)
 from .utils.precision import full_precision
 
 ROUTES = ("kron", "quad", "grid")
@@ -89,7 +90,7 @@ class SystemMatrix:
         direction's inverse-Jacobian square (stfem_tpu system.py:137-157)."""
         dim, C = K_op.dim, K_op.mesh.n_cells
         Q = K_op.n_q ** dim
-        Phi, Grad = K_op._basis_tensors()
+        Phi, Grad = basis_tensors(K_op.dim, K_op.degree, K_op.n_q)
         PhiG = np.concatenate([Phi] + [Grad[e] for e in range(dim)], axis=1)
         wK = K_op.weights_np().reshape(C, Q)
         jinv = 1.0 / K_op.mesh.h

@@ -29,8 +29,9 @@ class StokesSystemMatrix:
     route "sumfac": the Stokes operator's and the mass operator's own
     applies, as stfem_tpu computes them.  route "element" (vmult only):
     one gather of every cell's local (u, p) vector from the flat layout,
-    one matmul with the cell's element matrices (the uniform mesh's
-    Stokes and velocity mass matrices, side by side), the time mixing,
+    one matmul with the cell's element matrices (the Stokes and velocity
+    mass matrices side by side: one pair for a uniform mesh, one per cell
+    otherwise, a batched matmul), the time mixing,
     the Nitsche face cells' own matrices, and the overlap-add back (in
     cell_scatter's order): the same operator to rounding, in ~15 launches
     where the sum-factorised applies take ~230 (~380 with Nitsche faces),
@@ -63,9 +64,12 @@ class StokesSystemMatrix:
 
     def _element_setup(self):
         """Element matrices, the cell-local masks and index maps of the
-        element route.  The mesh is uniform: the unmasked Stokes and
-        velocity mass matrices of one of its cells, in float64 and then
-        the operator's dtype, stand for every cell, and _mloc masks."""
+        element route.  On a uniform mesh the unmasked Stokes and velocity
+        mass matrices of one of its cells, in float64 and then the
+        operator's dtype, stand for every cell ([P, 2P]); otherwise (a
+        cell mask, axis steps or a vertex map) every cell has its own
+        ([C, P, 2P], built in float64 on the operator's device).  _mloc
+        masks."""
         S, M = self.S, self.M
         if M.coefficient is not None or not np.array_equal(M.mask_np,
                                                            S.mask_u_np):
@@ -73,22 +77,29 @@ class StokesSystemMatrix:
                              "without coefficient on the Stokes mask")
         dim, A = S.dim, (S.u_degree + 1) ** S.dim
         P = dim * A + S.n_ploc
-        lo = np.asarray(S.mesh.lower, np.float64)
-        cell = StructuredMesh([1] * dim, lo, lo + np.asarray(S.mesh.h))
-        S1 = StokesOperator(cell, S.u_degree, S.p_degree, S.n_q,
-                            S.viscosity, device="cpu")
-        M1 = LaplaceMassOperator(cell, M.degree, M.n_q, M.mass_scaling,
-                                 M.laplace_scaling, device="cpu")
-        E_uu, E_up, E_pu = (E[0] for E in S1.element_matrices(masked=False))
-        E_m = M1.element_matrices(masked=False)[0]
-        E_S = torch.zeros((P, P), dtype=torch.float64)
+        if S.mesh.uniform:
+            lo = np.asarray(S.mesh.lower, np.float64)
+            mesh = StructuredMesh([1] * dim, lo, lo + np.asarray(S.mesh.h))
+            dev = torch.device("cpu")
+        else:
+            mesh, dev = S.mesh, self.device
+        S1 = StokesOperator(mesh, S.u_degree, S.p_degree, S.n_q,
+                            S.viscosity, device=dev)
+        M1 = LaplaceMassOperator(mesh, M.degree, M.n_q, M.mass_scaling,
+                                 M.laplace_scaling, device=dev)
+        E_uu, E_up, E_pu = S1.element_matrices(masked=False)
+        E_m = M1.element_matrices(masked=False)
+        C1 = E_uu.shape[0]
+        E_S = torch.zeros((C1, P, P), dtype=torch.float64, device=dev)
         E_M = torch.zeros_like(E_S)
         for c in range(dim):
             u = slice(c * A, (c + 1) * A)
-            E_S[u, u], E_M[u, u] = E_uu, E_m
-        E_S[:dim * A, dim * A:], E_S[dim * A:, :dim * A] = E_up, E_pu
-        self._E = torch.cat([E_S.T, E_M.T], dim=1).to(
-            dtype=self.dtype, device=self.device)               # [P, 2P]
+            E_S[:, u, u], E_M[:, u, u] = E_uu, E_m
+        E_S[:, :dim * A, dim * A:] = E_up
+        E_S[:, dim * A:, :dim * A] = E_pu
+        E = torch.cat([E_S.transpose(1, 2), E_M.transpose(1, 2)], dim=2)
+        self._E = (E[0] if S.mesh.uniform else E).to(
+            dtype=self.dtype, device=self.device)   # [P, 2P] or [C, P, 2P]
         lidx, src = S.local_maps()
         self._lidx = torch.as_tensor(lidx.reshape(-1), device=self.device)
         self._src = torch.as_tensor(src.reshape(-1), device=self.device)
@@ -114,7 +125,11 @@ class StokesSystemMatrix:
         T, C, P = x.shape[0], self._mloc.shape[0], self._mloc.shape[1]
         loc = x.index_select(-1, self._lidx).reshape(
             (T, -1, C, P)) * self._mloc
-        y = loc @ self._E                                # [T, B, C, 2P]
+        if self._E.ndim == 2:
+            y = loc @ self._E                            # [T, B, C, 2P]
+        else:
+            y = torch.bmm(loc.movedim(2, 0).reshape(C, -1, P), self._E)
+            y = y.reshape((C,) + loc.shape[:2] + (2 * P,)).movedim(0, 2)
         out = (self.a @ y[..., :P].reshape(T, -1)
                + self.b @ y[..., P:].reshape(T, -1)).reshape(loc.shape)
         for layer, F in self._faces:

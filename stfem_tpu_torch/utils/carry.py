@@ -4,15 +4,18 @@ The parity tests extract numpy arrays from the JAX package's objects
 (np.asarray on KronAssembled.M1/A1/Md/Ad, PreconditionVanka.Wdn/Wup/
 GinvT/cvecT or, in the cell-local mode, V/Ginv/cvec/TTinv/dinv,
 StokesVanka.Binv/Kappa, LaplaceMassOperator.coeff, SystemMatrix._phig/_w,
-GridSumFac.Wa/Wb, the GMG level omegas, coarse_Ainv and coarse_null) and
-load them here, so that a comparison starts from identical factors and
-isolates the apply.  Layouts that differ are converted here.
+GridSumFac.Wa/Wb, the GMG level omegas, coarse_Ainv and coarse_null, an
+operator's geometry jxw/jinv/jinv_axis) and load them here, so that a
+comparison starts from identical factors and isolates the apply.
+Layouts that differ are converted here.
 The time tables need no loader: both packages build them in NumPy, and
 the tests pass the same arrays to both constructors.  Arrays are cast to
 the dtype and device of the tensor they replace; bf16 arrays should be
 handed over as float32 (exact).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -135,3 +138,23 @@ def load_gmg(gmg, omegas=None, coarse_Ainv=None, coarse_null=None) -> None:
     if coarse_null is not None:
         assert gmg.coarse_null is not None
         gmg.coarse_null = _like(coarse_null, gmg.coarse_null)
+
+
+def load_geometry(op, jxw=None, jinv=None, jinv_axis=None) -> None:
+    """A LaplaceMassOperator's or StokesOperator's geometry arrays in
+    stfem_tpu's Geometry layouts -- jxw, jinv [*cells, *q, dim, dim] of a
+    mapped mesh, jinv_axis (one (cells[d],) array per axis) of a
+    non-uniform one -- and every table the operator derives from them, so
+    that an apply starts from stfem_tpu's map Jacobians."""
+    new = {}
+    for name, a in (("jxw", jxw), ("jinv", jinv)):
+        if a is not None:
+            ref = getattr(op.geom, name)
+            assert ref is not None and np.shape(a) == np.shape(ref), name
+            new[name] = np.array(a, np.float64)
+    if jinv_axis is not None:
+        ref = op.geom.jinv_axis
+        assert ref is not None and [np.shape(a) for a in jinv_axis] == [
+            np.shape(a) for a in ref]
+        new["jinv_axis"] = tuple(np.array(a, np.float64) for a in jinv_axis)
+    op._set_geometry(dataclasses.replace(op.geom, **new))

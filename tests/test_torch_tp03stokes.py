@@ -306,10 +306,15 @@ def test_lid_driven_strong_vs_nitsche():
 
 
 def test_practical_mode_dfg_raises(tmp_path):
+    """dfgBenchmark >= 1 raised NotImplementedError until the DFG channel
+    was ported; it now runs the channel (the dfgBenchmarkSquare grid for
+    the default gridDescriptor, refinement 1, one slab, the default
+    config's unpreconditioned FGMRES) with finite drag and lift."""
     p = tconfig.Parameters()
-    with pytest.raises(NotImplementedError, match="DFG channel"):
-        tp.run_practical(p, tconfig.StokesParameters(dfg_benchmark=1), 1,
-                         1, device="cpu")
+    res = tp.run_practical(p, tconfig.StokesParameters(dfg_benchmark=1), 1,
+                           1, n_slabs_max=1, device="cpu")
+    assert len(res["iterations"]) == 1 and res["mesh"].cell_mask is not None
+    assert np.all(np.isfinite(res["drag_lift"]))
 
 
 def test_main_needs_cuda_or_cpu():
