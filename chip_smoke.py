@@ -118,6 +118,32 @@ Phases (each prints one line; any failure raises and exits non-zero):
      1e-8 of their largest entry, c_D and c_L within 1e-8 relative,
      iterations within 1.  The path runs none of K1-K5 (launches_by_path
      "dfg": zeros).
+ 14. the solver options (configs/*_chebyshev.json: "smoother" chebyshev,
+     "smoothingSteps" 2, "smoothingRange" 5 and, for tp_01,
+     "coarseGridSmootherType" GMRES; otherwise the configs of phases 10-12):
+     (a) tp_01 practical mode at 16^3 as phase 10, with each level's theta
+     and delta and one V-cycle under the profiler; K1 and K5 must launch;
+     the V-cycle's wall with the GMRES coarse solve's host read-back
+     against the same V-cycle with it replayed on the device (also at
+     32^3 in (b));
+     (b) tp_01 convergence, heat DG(1) at 16^3 and 32^3 through run_config:
+     per refinement the slab walls, iterations, DoF/s, setup and launches,
+     each norm within 1e-4 relative of phase 11b's Relaxation run (two
+     preconditioners stopped at rel 1e-12 leave different iterates), K1
+     and both K4 chains launching at 32^3; the GMRES coarse solve runs on
+     the 1-cell Q2 level (one free dof a block: GMRES breaks down after
+     two iterations and the minimum-norm solve is exact); (c) the 256^2
+     lid for 2 slabs: per slab the iterations, wall, DoF/s and the true
+     FP64 residual within 2x of the stop test, u on the free dofs and p
+     (up to the enclosed flow's constant) within 1e-7 of phase 12c's (of
+     their largest entry) and the functionals rows within 1e-7; the coarse
+     level goes to the pseudo-inverse by the routing rule; (d) the 2D heat
+     DG(1) golden cell at refinement 2 with (a)'s keys (its GMRES coarse
+     level, 1-cell Q1, has no free dof: the defect is zero) and the weak
+     lid at refinement 3 (2 slabs) with (c)'s on the card against the CPU
+     within 1e-8, iterations within 1.  launches_by_path gains "chebyshev
+     practical", "chebyshev convergence" (the 16^3/32^3 sweep) and
+     "chebyshev stokes" (the 256^2 lid), each without (d)'s launches.
 Then it prints the nvidia-smi line, a JSON line describing the kernels
 (launches over all main paths and by path),
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -229,13 +255,219 @@ def _vanka_levels(gmg) -> str:
             f"of 0..{len(gmg.levels) - 1}")
 
 
-def tp01_convergence(wrappers, dev) -> dict:
+def practical_phase(wrappers, dev, path, label, vcycle=False) -> dict:
+    """Phase 10 (and 14a): tp_01 practical mode through
+    drivers/tp01.run_single on the config at `path` (16^3 cells, 4 slabs),
+    then slab 0 again under the profiler and, with vcycle, each level's
+    smoother parameters and one V-cycle under the profiler.  Per slab the
+    FGMRES iterations, wall, DoF/s and the true FP64 residual through the
+    GridSumFac route (no code shared with K5), which must meet FGMRES's
+    stop test within a factor 2.  Returns the launches of every wrapper
+    over the run (set to 0 first)."""
+    import torch
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.config import Parameters
+    from stfem_tpu_torch.drivers import tp01
+    from stfem_tpu_torch.system import SystemMatrix
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    for w in wrappers.values():
+        w.launches = 0
+    timer, slabs = TimerOutput(), []
+    with tempfile.TemporaryDirectory() as tmpd:
+        p = Parameters.parse(str(path), 3)
+        p.functional_file = os.path.join(tmpd, "functionals.txt")
+        wall0 = time.time()
+        res = tp01.run_single(p, p.fe_degree, p.refinement, timer=timer,
+                              device="cuda",
+                              on_slab=lambda *a: slabs.append(a))
+        wall = time.time() - wall0
+        counts = {name: w.launches for name, w in wrappers.items()}
+        with open(p.functional_file) as f:
+            n_rows = sum(1 for line in f if line.strip())
+    st_dofs = res.n_blocks * res.n_dofs
+    walls = timer.times["step"]
+    print(f"# {label} 16^3 Q3 ntao=8 ({st_dofs} space-time DoFs per "
+          f"slab): setup {timer.totals['setup']:.2f} s (hierarchy "
+          f"{timer.totals['setup:gmg']:.2f} s), phase wall {wall:.1f} s, "
+          f"{n_rows} functionals rows", flush=True)
+    # untimed: each slab's true FP64 residual through the GridSumFac route
+    integ = slabs[0][0]
+    K, M = integ.matrix.K, integ.matrix.M
+    Al, Be, Ga, _ = get_fe_time_weights(TimeStepType.DG, p.fe_degree,
+                                        slabs[0][2], p.n_timesteps_at_once)
+    A_grid = SystemMatrix(K, M, Al, Be, route="grid")
+    R_grid = SystemMatrix(K, M, np.zeros_like(Ga), Ga, route="grid")
+    ok, rhs0 = True, None
+    for i, ((_, t, dt, prev, x, stats), w) in enumerate(zip(slabs, walls)):
+        rhs = R_grid.vmult(prev[None]) + integ.assemble_force(t, dt)
+        rhs0 = rhs if rhs0 is None else rhs0
+        rn = float((rhs - A_grid.vmult(x)).norm())
+        r0 = float((rhs - A_grid.vmult(integ._extrapolate(prev))).norm())
+        tol = max(integ.abstol, integ.reltol * r0)
+        print(f"# {label} slab {i}: FGMRES iterations {stats.iterations}"
+              f", slab wall {w:.4f} s, {st_dofs / w:.4e} space-time DoF/s; "
+              f"true FP64 ||r|| {rn:.3e} (/||rhs|| {rn / float(rhs.norm()):.3e}"
+              f", /||r0|| {rn / r0:.3e}) vs FGMRES tol {tol:.3e}, Givens "
+              f"estimate {stats.residual:.3e}", flush=True)
+        ok = ok and stats.converged and rn <= 2.0 * tol
+    # slab 0 again: the later slabs' fields have decayed below FGMRES's
+    # abstol and take no iteration
+    _, t, dt, prev, _, _ = slabs[0]
+    prof = bench_heat.profile_slab(lambda: integ.solve(prev, t, dt), dev,
+                                   top=1000)
+    k5 = [r for r in prof["top_kernels_ms"] if "quad_middle" in r[0]]
+    print(f"# {label}: profile of slab 0 again (untimed): K5 "
+          f"{k5} (launches, device ms); device busy "
+          f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall "
+          f"(share {prof['device_busy_share']:.4f}), "
+          f"{prof['n_kernel_launches']} launches, trace stop "
+          f"{prof['exit_s']:.2f} s, summary {prof['summary_s']:.2f} s; top "
+          f"kernels (ms) {prof['top_kernels_ms'][:6]}; top ops (ms) "
+          f"{prof['top_ops_ms'][:6]}", flush=True)
+    if vcycle:
+        gmg = integ.preconditioner
+        print(f"# {label}: {_smoother_levels(gmg)}; coarse solve "
+              f"{gmg.coarse}", flush=True)
+        v = rhs0 / rhs0.norm()
+        vprof = bench_heat.profile_slab(lambda: gmg(v), dev, top=8)
+        port = vprof["port_kernels_ms"]
+        print(f"# {label}: one V-cycle alone (untimed): "
+              f"{vprof['n_kernel_launches']} launches, "
+              f"{vprof['wall_s']:.4f} s wall, device busy share "
+              f"{vprof['device_busy_share']:.4f}; K1 {port['time_solve']}, "
+              f"K5 {port['quad_middle']} (launches, device ms); top ops "
+              f"(ms) {vprof['top_ops_ms'][:5]}", flush=True)
+        if gmg.coarse not in ("Direct", "Smoother"):
+            _readback_ab(gmg, v, label)
+    # slabs whose extrapolated start already meets abstol do no solve work
+    busy = [w for (*_, stats), w in zip(slabs, walls) if stats.iterations]
+    print(f"# {label} launches {counts}; slabs {len(walls)}, of which "
+          f"{len(busy)} took FGMRES iterations: mean over those "
+          f"{st_dofs * len(busy) / max(sum(busy), 1e-30):.4e} space-time "
+          f"DoF/s", flush=True)
+    if not (ok and len(walls) == 4):
+        raise AssertionError(f"{label} path: a slab missed its residual")
+    del slabs, integ, A_grid, R_grid
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _readback_ab(gmg, v, label, pairs=3) -> None:
+    """One V-cycle of gmg with the GMRES coarse solve's host read-back
+    (krylov._least_squares) against the same V-cycle with the read-back
+    taken out: the least-squares solutions of a recorded V-cycle replayed
+    on the device, so the launches stay and the host never waits.  Host
+    wall of each (synchronized), `pairs` alternating pairs after the
+    recording; the saving bounds what any read-back-free solve could
+    gain."""
+    import torch
+    from stfem_tpu_torch import krylov
+
+    solve, ys, pos = krylov._least_squares, [], [0]
+
+    def record(H, beta):
+        ys.append(solve(H, beta))
+        return ys[-1]
+
+    def replay(H, beta):
+        pos[0] += 1
+        return ys[(pos[0] - 1) % len(ys)]
+
+    def timed(fn):
+        krylov._least_squares = fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gmg(v)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    try:
+        _, ref = timed(record)
+        walls = {"read-back": [], "replayed": []}
+        for _ in range(pairs):
+            for name, fn in (("read-back", solve), ("replayed", replay)):
+                t, out = timed(fn)
+                walls[name].append(t)
+    finally:
+        krylov._least_squares = solve
+    diff = float((out - ref).norm() / ref.norm())
+    a, b = (float(np.median(walls[n])) for n in ("read-back", "replayed"))
+    print(f"# {label}: GMRES coarse read-back A/B over {pairs} pairs of one "
+          f"V-cycle ({len(ys)} coarse solve(s) a V-cycle): with the host "
+          f"read-back {[round(t, 4) for t in walls['read-back']]} s, "
+          f"replayed on the device {[round(t, 4) for t in walls['replayed']]}"
+          f" s; median saving {a - b:.4f} s ({(a - b) / a:.2%} of the "
+          f"V-cycle); replayed V-cycle vs recorded {diff:.2e}", flush=True)
+
+
+def _smoother_levels(gmg) -> str:
+    """Each level's smoother and its parameters (theta, delta or omega)."""
+    out = []
+    for lvl, level in enumerate(gmg.levels):
+        sm = level.smoother
+        if hasattr(sm, "theta"):
+            out.append(f"{lvl}: Chebyshev({sm.degree}) theta {sm.theta:.6g} "
+                       f"delta {sm.delta:.6g}")
+        elif hasattr(sm, "omega"):
+            out.append(f"{lvl}: Relaxation({sm.n_iterations}) omega "
+                       f"{sm.omega:.6g}")
+        else:
+            out.append(f"{lvl}: Identity")
+    return "levels " + ", ".join(out)
+
+
+def _sweep(p, name, wrappers, reset):
+    """tp01.run_config on p on the card, printing per refinement the slab
+    walls, iterations, space-time DoF/s, setup and K1-K4 launches.
+    Returns (results by (k, ref), per-refinement rows, the finest slab's
+    integrator state, wall); each row ends with the raw launches of every
+    wrapper."""
+    from stfem_tpu_torch.drivers import tp01
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    timer, state, rows = TimerOutput(), {"setup": 0.0, "steps": 0}, []
+    last = {}
+
+    def on_cycle(k, ref, res):
+        walls = timer.times["step"][state["steps"]:]
+        setup = timer.totals["setup"] - state["setup"]
+        state.update(setup=timer.totals["setup"],
+                     steps=len(timer.times["step"]))
+        counts = _k_counts(wrappers)
+        raw = {n: w.launches for n, w in wrappers.items()}
+        reset()
+        st = res.n_blocks * res.n_dofs
+        rows.append((ref, res.n_cells, st, res.slab_iterations,
+                     sum(walls) / len(walls),
+                     st * len(walls) / sum(walls), setup, counts, raw))
+        print(f"# tp01 3D {name} ref {ref}: {res.n_cells} cells, {st} "
+              f"space-time DoFs per slab, {len(walls)} slabs, FGMRES "
+              f"iterations {res.slab_iterations}, slab wall mean "
+              f"{sum(walls) / len(walls):.4f} s (max {max(walls):.4f}),"
+              f" {st * len(walls) / sum(walls):.4e} space-time DoF/s, "
+              f"setup {setup:.2f} s, launches {counts}", flush=True)
+
+    def on_slab(integ, t, dt, prev, x, stats):
+        last.update(integ=integ, t=t, dt=dt, prev=prev)
+
+    reset()
+    t0 = time.time()
+    results = tp01.run_config(p, device="cuda", timer=timer,
+                              on_cycle=on_cycle, on_slab=on_slab)
+    return results, rows, last, time.time() - t0
+
+
+def tp01_convergence(wrappers, dev, norms=None) -> dict:
     """Phase 11: tp_01's convergence mode on the card (drivers/tp01.py,
     drivers/heat.py, errors.py) -- (a) the 2D golden cells with the STMG
     preconditioner at GMGParams' defaults, (b) the two committed 3D
     configurations through run_config, (c) small 3D cells on the card
     against the CPU.  Returns the launches of every wrapper over the
-    phase; raises on any failed check.  Sets the counts to 0 first."""
+    phase; raises on any failed check.  Sets the counts to 0 first.
+    norms, if given, receives (b)'s (linf, l2, h1) by (name, ref)."""
     import torch
     from stfem_tpu_torch import bench_heat
     from stfem_tpu_torch.config import Parameters
@@ -244,7 +476,6 @@ def tp01_convergence(wrappers, dev) -> dict:
                                               stmg_preconditioner_factory)
     from stfem_tpu_torch.stmg.gmg import GMGParams
     from stfem_tpu_torch.types import ProblemType, TimeStepType
-    from stfem_tpu_torch.utils.timer import TimerOutput
 
     total = dict.fromkeys(wrappers, 0)
     for w in wrappers.values():
@@ -288,41 +519,16 @@ def tp01_convergence(wrappers, dev) -> dict:
             "wave_cgp2": (2.5, ("K2", "K3", "K4"))}
     for name, path in tp01.CONVERGENCE_3D.items():
         p = Parameters.parse(str(path), 3)
-        timer, state, rows = TimerOutput(), {"setup": 0.0, "steps": 0}, []
-        last = {}
-
-        def on_cycle(k, ref, res):
-            walls = timer.times["step"][state["steps"]:]
-            setup = timer.totals["setup"] - state["setup"]
-            state.update(setup=timer.totals["setup"],
-                         steps=len(timer.times["step"]))
-            counts = _k_counts(wrappers)
-            reset()
-            st = res.n_blocks * res.n_dofs
-            rows.append((ref, res.n_cells, st, res.slab_iterations,
-                         sum(walls) / len(walls),
-                         st * len(walls) / sum(walls), setup, counts))
-            print(f"# tp01 3D {name} ref {ref}: {res.n_cells} cells, {st} "
-                  f"space-time DoFs per slab, {len(walls)} slabs, FGMRES "
-                  f"iterations {res.slab_iterations}, slab wall mean "
-                  f"{sum(walls) / len(walls):.4f} s (max {max(walls):.4f}),"
-                  f" {st * len(walls) / sum(walls):.4e} space-time DoF/s, "
-                  f"setup {setup:.2f} s, launches {counts}", flush=True)
-
-        def on_slab(integ, t, dt, prev, x, stats):
-            last.update(integ=integ, t=t, dt=dt, prev=prev)
-
-        reset()
-        t0 = time.time()
-        results = tp01.run_config(p, device="cuda", timer=timer,
-                                  on_cycle=on_cycle, on_slab=on_slab)
-        wall = time.time() - t0
+        results, rows, last, wall = _sweep(p, name, wrappers, reset)
+        if norms is not None:
+            for (_, ref), r in results.items():
+                norms[(name, ref)] = (r.linf_linf, r.l2_l2, r.l2_h1)
         l2 = [results[(p.fe_degree, r)].l2_l2
               for r in range(p.refinement, p.refinement + p.n_ref_cycles)]
         rate = float(np.log2(l2[-2] / l2[-1]))
         bar, needed = bars[name]
         used = sorted(k for k in ("K1", "K2", "K3", "K4")
-                      if any(r[-1][k] for r in rows))
+                      if any(r[-2][k] for r in rows))
         print(f"# tp01 3D {name}: L2-L2 rate between the two finest "
               f"refinements {rate:.3f} (bar {bar}); kernels on this path "
               f"{used}; finest V-cycle: "
@@ -330,7 +536,7 @@ def tp01_convergence(wrappers, dev) -> dict:
               f"{wall:.1f} s", flush=True)
         if rate < bar:
             raise AssertionError(f"tp01 3D {name}: rate {rate} < {bar}")
-        missing = [k for k in needed if not rows[-1][-1][k]]
+        missing = [k for k in needed if not rows[-1][-2][k]]
         if missing:
             raise AssertionError(f"tp01 3D {name}: kernels never ran at "
                                  f"the finest refinement: {missing}")
@@ -394,14 +600,15 @@ STOKES_GOLDEN = {1: ((1.65240e-02, 3.33168e-02, 2.84237e-01, 2.2158e-01,
                       1.83976e-02, 5.80497e-02, 3.91842e-01), 12)}
 
 
-def tp03stokes_phase(wrappers, dev) -> dict:
+def tp03stokes_phase(wrappers, dev, lid=None) -> dict:
     """Phase 12: the tp_03stokes application on the card (drivers/
     tp03stokes.py, drivers/stokes.py, the Nitsche faces, the functionals)
     -- (a) the golden cells, (b) the convergence sweep, (c) the lid-driven
     cavity at 256^2 cells with a profiled slab, (d) small cells on the card
     against the CPU.  Returns the launches of every wrapper over the phase
     (the path runs none of K1-K5); raises on any failed check.  Sets the
-    counts to 0 first."""
+    counts to 0 first.  lid, if given, receives (c)'s first two slab
+    solutions ("x", on the host) and its functionals rows ("rows")."""
     import torch
     from stfem_tpu_torch import bench_heat
     from stfem_tpu_torch.config import Parameters, StokesParameters
@@ -520,6 +727,9 @@ def tp03stokes_phase(wrappers, dev) -> dict:
     if not (ok and rows and not bad_rows):
         raise AssertionError("tp03stokes lid: a slab missed its residual "
                              "or the functionals file is malformed")
+    if lid is not None:
+        lid.update(x=[s["x"].cpu() for s in slabs[:2]],
+                   rows=np.array(rows, dtype=np.float64))
     del slabs, last, res
     torch.cuda.empty_cache()
 
@@ -694,6 +904,207 @@ def dfg_phase(wrappers, dev) -> dict:
     return counts
 
 
+def _velocity_pressure(S, x):
+    """A Stokes slab solution [T, n_u + n_p] as FGMRES returns it, on the
+    host, as the quantities a solve determines: u on the free dofs (the
+    constrained ones hold what each preconditioner leaves there, until
+    the driver zeroes them) and p less the per-block mean of the cells'
+    constant mode (the enclosed flow fixes p only up to that constant)."""
+    import torch
+    x = x.cpu()
+    free = torch.as_tensor(np.tile(S.mask_u_np.reshape(-1), S.dim))
+    p = x[:, S.n_u:].reshape(x.shape[0], -1, S.n_ploc_cell).clone()
+    p[..., 0] -= p[..., 0].mean(dim=1, keepdim=True)
+    return x[:, :S.n_u] * free, p
+
+
+def chebyshev_phase(wrappers, dev, relaxation, lid) -> dict:
+    """Phase 14: the solver options on the card -- the Chebyshev smoother
+    and the GMRES coarse solve through the applications' entry points on
+    the committed *_chebyshev configs: (a) tp_01 practical mode at 16^3,
+    (b) tp_01 convergence, heat DG(1) at 16^3 and 32^3, its norms against
+    phase 11b's Relaxation run (`relaxation`, by (name, ref)), (c) the
+    256^2 lid for 2 slabs against phase 12c's first two (`lid`), (d) small
+    cells on the card against the CPU.  Returns the launches of every
+    wrapper by path (each set to 0 first); raises on any failed check."""
+    import torch
+    from stfem_tpu_torch.config import Parameters, StokesParameters
+    from stfem_tpu_torch.drivers import tp01, tp03stokes
+    from stfem_tpu_torch.drivers.heat import (run_heat_cycle,
+                                              stmg_preconditioner_factory)
+    from stfem_tpu_torch.stmg.gmg import GMG, GMGParams
+    from stfem_tpu_torch.types import SupportedSmoothers, TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    by_path = {}
+
+    def rel(a, b):
+        return abs(a / b - 1.0)
+
+    # (a) tp_01 practical mode, 16^3 Q3 x dG(2), 4 slabs
+    counts = practical_phase(
+        wrappers, dev, tp01.CONFIGS / "tp01_practical_3d_chebyshev.json",
+        "chebyshev practical", vcycle=True)
+    if not (counts["time_solve"] and counts["quad_middle"]):
+        raise AssertionError("chebyshev practical: K1 or K5 never ran")
+    by_path["chebyshev practical"] = counts
+
+    # (b) tp_01 convergence, heat DG(1), refinements 4-5 (16^3, 32^3)
+    for w in wrappers.values():
+        w.launches = 0
+    total = dict.fromkeys(wrappers, 0)
+
+    def reset():
+        for name, w in wrappers.items():
+            total[name] += w.launches
+            w.launches = 0
+
+    p = Parameters.parse(
+        str(tp01.CONFIGS / "tp01_convergence_3d_heat_dg1_chebyshev.json"), 3)
+    p.refinement, p.n_ref_cycles = 4, 2
+    results, rows, last, wall = _sweep(p, "heat_dg1 chebyshev", wrappers,
+                                       reset)
+    worst = 0.0
+    for (_, ref), r in results.items():
+        ref_norms = relaxation[("heat_dg1", ref)]
+        errs = [rel(a, b) for a, b in zip(
+            (r.linf_linf, r.l2_l2, r.l2_h1), ref_norms)]
+        worst = max(worst, max(errs))
+        print(f"# tp01 3D heat_dg1 chebyshev ref {ref}: linf "
+              f"{r.linf_linf:.10e} l2 {r.l2_l2:.10e} h1 {r.l2_h1:.10e}; "
+              f"rel to phase 11b's Relaxation run {max(errs):.2e} (tol "
+              f"1e-4); mean FGMRES iterations {r.avg_iterations:g}",
+              flush=True)
+    gmg = last["integ"].preconditioner
+    lvl0 = gmg.levels[0]
+    free0 = int(np.sum(lvl0.matrix.K.mask_np))
+    raw = rows[-1][-1]
+    print(f"# tp01 3D heat_dg1 chebyshev finest V-cycle: "
+          f"{_vanka_levels(gmg)}; {_smoother_levels(gmg)}; coarse solve "
+          f"{gmg.coarse} ({gmg.coarse_maxiter} iterations) on level 0 of "
+          f"{lvl0.n_blocks} x {int(np.prod(lvl0.dof_shape))} unknowns, "
+          f"{free0} free per block; raw launches at 32^3 {raw}; sweep wall "
+          f"{wall:.1f} s", flush=True)
+    if worst > 1e-4:
+        raise AssertionError("tp01 heat_dg1 chebyshev: norms off phase 11b")
+    if not (raw["time_solve"] and raw["chain_down"] and raw["chain_up"]):
+        raise AssertionError("tp01 heat_dg1 chebyshev: K1 or K4 never ran "
+                             "at 32^3")
+    reset()
+    by_path["chebyshev convergence"] = dict(total)
+    top = gmg.levels[-1]
+    v = torch.randn((top.n_blocks,) + tuple(top.dof_shape),
+                    generator=torch.Generator(device="cuda").manual_seed(0),
+                    dtype=torch.float64, device="cuda")
+    _readback_ab(gmg, v / v.norm(), "tp01 3D heat_dg1 chebyshev 32^3")
+    del results, last, gmg, lvl0, top, v
+    torch.cuda.empty_cache()
+
+    # (d) the 2D heat DG(1) golden cell at refinement 2 with (a)'s keys:
+    #     the card against the CPU
+    params = GMGParams(smoother=SupportedSmoothers.Chebyshev,
+                       smoothing_steps=2, smoothing_range=5.0,
+                       coarse_grid_smoother_type="GMRES")
+    out = {}
+    for d in ("cuda", "cpu"):
+        out[d] = run_heat_cycle(
+            refinement=2, fe_degree=1, type_=TimeStepType.DG,
+            n_timesteps_at_once=2, gmres_maxiter=100, device=d,
+            preconditioner_factory=stmg_preconditioner_factory(
+                params=params, fe_degree_min=1))
+    g, c = out["cuda"], out["cpu"]
+    worst = max(rel(getattr(g, n), getattr(c, n))
+                for n in ("linf_linf", "l2_l2", "l2_h1"))
+    print(f"# chebyshev small heat DG(1) 2D ref 2: gpu l2 {g.l2_l2:.10e} "
+          f"cpu {c.l2_l2:.10e} (golden 1.78760e-02), worst rel difference "
+          f"of the three norms {worst:.2e} (tol 1e-8); FGMRES "
+          f"iterations/slab gpu {g.slab_iterations} cpu {c.slab_iterations}",
+          flush=True)
+    if worst > 1e-8 or any(abs(a - b) > 1 for a, b in
+                           zip(g.slab_iterations, c.slab_iterations)):
+        raise AssertionError("chebyshev small heat: card and CPU differ")
+
+    # (c) the 256^2 lid, 2 slabs
+    for w in wrappers.values():
+        w.launches = 0
+    extra = StokesParameters()
+    lid_cfg = tp03stokes.CONFIGS / "tp03stokes_lid_2d_chebyshev.json"
+    with tempfile.TemporaryDirectory() as tmpd:
+        p = Parameters.parse(str(lid_cfg), 2)
+        p.functional_file = os.path.join(tmpd, "functionals.txt")
+        timer, slabs = TimerOutput(), []
+        t0 = time.time()
+        res = tp03stokes.run_practical(p, extra, p.fe_degree, p.refinement,
+                                       n_slabs_max=2, device="cuda",
+                                       timer=timer, on_slab=slabs.append)
+        wall = time.time() - t0
+        rows = np.loadtxt(p.functional_file, ndmin=2)
+    gmg = slabs[0]["preconditioner"]
+    lvl0 = gmg.levels[0]
+    n0 = lvl0.n_blocks * int(np.prod(lvl0.dof_shape))
+    st = res["n_blocks"] * res["n_dofs"]
+    print(f"# chebyshev lid 256^2 DG(1): {st} unknowns per slab; setup "
+          f"{timer.totals['setup']:.2f} s (hierarchy "
+          f"{timer.totals['setup:gmg']:.2f} s), run wall {wall:.1f} s; "
+          f"{_smoother_levels(gmg)}; coarse level {n0} unknowns <= "
+          f"{GMG.DIRECT_COARSE_MAX}: solved by {gmg.coarse} (the FP64 "
+          f"pseudo-inverse, by the routing rule) though the config asks "
+          f"for {p.mg_data.coarse_grid_smoother_type}", flush=True)
+    ok = len(slabs) == 2 and gmg.coarse == "Direct"
+    worst_x = 0.0
+    for i, (s, w) in enumerate(zip(slabs, timer.times["step"])):
+        m, stats = s["matrix"], s["stats"]
+        rn = float((s["rhs"] - m.vmult(s["x"])).norm())
+        r0 = float((s["rhs"] - m.vmult(s["x0"])).norm())
+        tol = max(1e-12, p.rel_tol * r0)
+        dx = max(float((a - b).abs().max() / b.abs().max()) for a, b in
+                 zip(_velocity_pressure(m.S, s["x"]),
+                     _velocity_pressure(m.S, lid["x"][i])))
+        worst_x = max(worst_x, dx)
+        print(f"# chebyshev lid slab {i}: FGMRES iterations "
+              f"{stats.iterations}, slab wall {w:.4f} s, {st / w:.4e} "
+              f"space-time DoF/s; true FP64 ||r|| {rn:.3e} (/||r0|| "
+              f"{rn / r0:.3e}) vs FGMRES tol {tol:.3e}; free u and p (up "
+              f"to its constant) vs phase 12c's {dx:.2e} of their largest "
+              f"entry", flush=True)
+        ok = ok and stats.converged and rn <= 2.0 * tol
+    ref_rows = lid["rows"][:len(rows)]
+    m = np.abs(ref_rows).max(axis=0)
+    scale = np.array([m[0], *[max(m[1:3])] * 2, *[max(m[3:5])] * 2, m[5]])
+    worst_f = (float((np.abs(rows - ref_rows) / scale).max())
+               if rows.shape == ref_rows.shape else np.inf)
+    print(f"# chebyshev lid: {len(rows)} functionals rows against phase "
+          f"12c's, worst difference relative to their quantity's largest "
+          f"value {worst_f:.2e} (tol 1e-7); u and p {worst_x:.2e} (tol "
+          f"1e-7)", flush=True)
+    if not (ok and worst_f <= 1e-7 and worst_x <= 1e-7):
+        raise AssertionError("chebyshev lid: a slab missed its residual or "
+                             "disagrees with phase 12c")
+    by_path["chebyshev stokes"] = {name: w.launches
+                                   for name, w in wrappers.items()}
+    del slabs, res, gmg, lvl0
+    torch.cuda.empty_cache()
+
+    # (d) the weak lid at refinement 3, 2 slabs, with (c)'s keys: the card
+    #     against the CPU
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = Parameters.parse(str(lid_cfg), 2)
+        p.functional_file = None
+        out[d] = tp03stokes.run_practical(p, extra, 1, 3, n_slabs_max=2,
+                                          device=d)
+    worst = max(float(np.abs(out["cuda"][n] - out["cpu"][n]).max()
+                      / np.abs(out["cpu"][n]).max()) for n in ("u", "p"))
+    print(f"# chebyshev small weak lid ref 3, 2 slabs: worst difference of "
+          f"u and p relative to their largest entry {worst:.2e} (tol 1e-8); "
+          f"FGMRES iterations gpu {out['cuda']['iterations']} cpu "
+          f"{out['cpu']['iterations']}", flush=True)
+    if worst > 1e-8 or any(abs(a - b) > 1 for a, b in zip(
+            out["cuda"]["iterations"], out["cpu"]["iterations"])):
+        raise AssertionError("chebyshev small lid: card and CPU differ")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -725,9 +1136,6 @@ def main() -> int:
         from stfem_tpu_torch.problems import heat
         from stfem_tpu_torch.problems.coefficient import Coefficient
         from stfem_tpu_torch.system import SystemMatrix
-        from stfem_tpu_torch.time.tables import get_fe_time_weights
-        from stfem_tpu_torch.types import TimeStepType
-        from stfem_tpu_torch.utils.timer import TimerOutput
     except ImportError as e:
         print(f"chip_smoke: the stfem_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -1123,80 +1531,19 @@ def main() -> int:
         phase_done(f"{label} main path")
 
     # 10. the coefficient main path: tp_01 practical mode at 16^3, 4 slabs
-    for w in wrappers.values():
-        w.launches = 0
-    timer, slabs = TimerOutput(), []
-    with tempfile.TemporaryDirectory() as tmpd:
-        p = Parameters.parse(str(tp01.PRACTICAL_3D), 3)
-        p.functional_file = os.path.join(tmpd, "functionals.txt")
-        wall0 = time.time()
-        res = tp01.run_single(p, p.fe_degree, p.refinement, timer=timer,
-                              device="cuda",
-                              on_slab=lambda *a: slabs.append(a))
-        wall = time.time() - wall0
-        counts = {name: w.launches for name, w in wrappers.items()}
-        with open(p.functional_file) as f:
-            n_rows = sum(1 for line in f if line.strip())
-    st_dofs = res.n_blocks * res.n_dofs
-    walls = timer.times["step"]
-    print(f"# coefficient 16^3 Q3 ntao=8 ({st_dofs} space-time DoFs per "
-          f"slab): setup {timer.totals['setup']:.2f} s (hierarchy "
-          f"{timer.totals['setup:gmg']:.2f} s), phase wall {wall:.1f} s, "
-          f"{n_rows} functionals rows", flush=True)
-    # untimed: each slab's true FP64 residual through the GridSumFac route
-    integ = slabs[0][0]
-    K, M = integ.matrix.K, integ.matrix.M
-    Al, Be, Ga, _ = get_fe_time_weights(TimeStepType.DG, p.fe_degree,
-                                        slabs[0][2], p.n_timesteps_at_once)
-    A_grid = SystemMatrix(K, M, Al, Be, route="grid")
-    R_grid = SystemMatrix(K, M, np.zeros_like(Ga), Ga, route="grid")
-    ok = True
-    for i, ((_, t, dt, prev, x, stats), w) in enumerate(zip(slabs, walls)):
-        rhs = R_grid.vmult(prev[None]) + integ.assemble_force(t, dt)
-        rn = float((rhs - A_grid.vmult(x)).norm())
-        r0 = float((rhs - A_grid.vmult(integ._extrapolate(prev))).norm())
-        tol = max(integ.abstol, integ.reltol * r0)
-        print(f"# coefficient slab {i}: FGMRES iterations {stats.iterations}"
-              f", slab wall {w:.4f} s, {st_dofs / w:.4e} space-time DoF/s; "
-              f"true FP64 ||r|| {rn:.3e} (/||rhs|| {rn / float(rhs.norm()):.3e}"
-              f", /||r0|| {rn / r0:.3e}) vs FGMRES tol {tol:.3e}, Givens "
-              f"estimate {stats.residual:.3e}", flush=True)
-        ok = ok and stats.converged and rn <= 2.0 * tol
-    # slab 0 again: the later slabs' fields have decayed below FGMRES's
-    # abstol and take no iteration
-    _, t, dt, prev, _, _ = slabs[0]
-    prof = bench_heat.profile_slab(lambda: integ.solve(prev, t, dt), dev,
-                                   top=1000)
-    k5 = [r for r in prof["top_kernels_ms"] if "quad_middle" in r[0]]
-    print(f"# coefficient: profile of slab 0 again (untimed): K5 "
-          f"{k5} (launches, device ms); device busy "
-          f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall "
-          f"(share {prof['device_busy_share']:.4f}), "
-          f"{prof['n_kernel_launches']} launches, trace stop "
-          f"{prof['exit_s']:.2f} s, summary {prof['summary_s']:.2f} s; top "
-          f"kernels (ms) {prof['top_kernels_ms'][:6]}; top ops (ms) "
-          f"{prof['top_ops_ms'][:6]}", flush=True)
-    # slabs whose extrapolated start already meets abstol do no solve work
-    busy = [w for (*_, stats), w in zip(slabs, walls) if stats.iterations]
-    print(f"# coefficient launches {counts}; slabs {len(walls)}, of which "
-          f"{len(busy)} took FGMRES iterations: mean over those "
-          f"{st_dofs * len(busy) / max(sum(busy), 1e-30):.4e} space-time "
-          f"DoF/s", flush=True)
-    if not (ok and len(walls) == 4):
-        raise AssertionError("coefficient path: a slab missed its residual")
+    counts = practical_phase(wrappers, dev, tp01.PRACTICAL_3D, "coefficient")
     missing = [n for n in path_kernels["coefficient"] if counts[n] == 0]
     if missing:
         raise AssertionError(f"coefficient: kernels never ran: {missing}")
     for name, c in counts.items():
         launches[name] += c
     by_path["coefficient"] = counts
-    del slabs, integ, A_grid, R_grid
-    torch.cuda.empty_cache()
     phase_done("coefficient main path")
 
     # 11. tp_01 convergence mode: the 2D golden cells, the two 3D sweeps,
     #     small 3D cells against the CPU
-    counts = tp01_convergence(wrappers, dev)
+    relaxation_norms, lid = {}, {}
+    counts = tp01_convergence(wrappers, dev, relaxation_norms)
     for name, c in counts.items():
         launches[name] += c
     by_path["tp01 convergence"] = counts
@@ -1204,7 +1551,7 @@ def main() -> int:
 
     # 12. the tp_03stokes application: golden cells, the convergence
     #     sweep, the 256^2 lid-driven cavity, small cells against the CPU
-    counts = tp03stokes_phase(wrappers, dev)
+    counts = tp03stokes_phase(wrappers, dev, lid)
     for name, c in counts.items():
         launches[name] += c
     by_path["tp03stokes"] = counts
@@ -1217,6 +1564,15 @@ def main() -> int:
         launches[name] += c
     by_path["dfg"] = counts
     phase_done("dfg")
+
+    # 14. the solver options: the Chebyshev smoother and the GMRES coarse
+    #     solve on the tp_01 practical, tp_01 convergence and lid paths
+    for label, counts in chebyshev_phase(wrappers, dev, relaxation_norms,
+                                         lid).items():
+        for name, c in counts.items():
+            launches[name] += c
+        by_path[label] = counts
+    phase_done("chebyshev")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

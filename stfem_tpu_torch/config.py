@@ -4,10 +4,10 @@
 Same key names as the reference's ParameterHandler schema (parameters.h:
 92-144), so the reference's tests/json/*.json parse verbatim.  Derived-
 default clamping mirrors parameters.h:162-175, and the golden-era
-time_before_space inversion is stfem_tpu's.  The multigrid keys fill the
-port's GMGParams; keys it has no field for are ignored, and the options
-the port does not run (Chebyshev, GMRES coarse solves) raise where the
-hierarchy is built.  StokesParameters is the tp_03stokes block, parsed
+time_before_space inversion is stfem_tpu's.  The multigrid keys fill
+GMGParams as stfem_tpu's parser fills them (smoothingDegree and the
+coarse-grid tolerances are read by nothing, there as here); keys with no
+field are ignored.  StokesParameters is the tp_03stokes block, parsed
 from the same file.
 """
 from __future__ import annotations
@@ -21,7 +21,7 @@ from .types import (STR_TO_COARSENING_TYPE, STR_TO_NONLINEAR_EXTRAPOLATION,
                     STR_TO_PROBLEM_TYPE, STR_TO_SMOOTHER, STR_TO_TIME_TYPE,
                     CoarseningType, NonlinearExtrapolation,
                     NonlinearTreatment, PolynomialCoarseningSequenceType,
-                    ProblemType, SupportedSmoothers, TimeStepType)
+                    ProblemType, TimeStepType)
 
 
 def _to_bool(v) -> bool:
@@ -128,10 +128,17 @@ class Parameters:
             "deltaTime": ("delta_time", float),
         }
         mg_map = {
+            "smoother": ("smoother", STR_TO_SMOOTHER.get),
+            "smoothingDegree": ("smoothing_degree", int),
             "smoothingSteps": ("smoothing_steps", int),
             "smoothingRange": ("smoothing_range", float),
             "relaxation": ("relaxation", float),
             "coarseGridSmootherType": ("coarse_grid_smoother_type", str),
+            "coarseGridMaxiter": ("coarse_grid_maxiter", int),
+            "coarseGridAbstol": ("coarse_grid_abstol", float),
+            "coarseGridReltol": ("coarse_grid_reltol", float),
+            "restrictIsTransposeProlongate":
+                ("restrict_is_transpose_prolongate", _to_bool),
             "variable": ("variable", _to_bool),
         }
         for key, value in raw.items():
@@ -141,10 +148,6 @@ class Parameters:
             elif key in mg_map:
                 attr, conv = mg_map[key]
                 setattr(p.mg_data, attr, conv(value))
-            elif (key == "smoother" and STR_TO_SMOOTHER.get(value)
-                  != SupportedSmoothers.Relaxation):
-                raise NotImplementedError(f"smoother {value!r}: only "
-                                          "Relaxation is ported")
             elif key in ("hyperRectLowerLeft", "hyperRectUpperRight",
                          "subdivisions", "sourcePoint"):
                 vals = [float(x) for x in str(value).split(",")]

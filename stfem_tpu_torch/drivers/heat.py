@@ -7,8 +7,9 @@ Ported: the heat equation (DG and CGP) with an optional coefficient
 field, initial value and rhs override, and the acoustic wave (DG and
 CGP, the Schur-reduced u-solve with the velocity recovered per slab);
 the space-time error norms against the manufactured solution (or
-exact_override), point probes and a timer.  Strong inhomogeneous
-Dirichlet data, mesh distortion and VTK output are not ported and raise.
+exact_override), point probes, a timer, and one binary VTK file of the
+slab's last time block per slab.  Strong inhomogeneous Dirichlet data
+and mesh distortion are not ported and raise.
 Everything runs on `device` (the card unless the caller asks for the
 CPU)."""
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..problems import heat as heat_problem
 from ..system import SystemMatrix
 from ..time.tables import get_fe_time_weights, get_fe_time_weights_wave
 from ..types import ProblemType, TimeStepType
+from ..utils.vtk import write_vtk
 
 
 def stmg_preconditioner_factory(dtype=torch.float32, params=None,
@@ -77,6 +79,7 @@ def run_heat_cycle(refinement: int, fe_degree: int,
                    distort_grid: float = 0.0, coefficient=None,
                    compute_errors: bool = True, initial_fn=None,
                    rhs_fn_override=None, do_output: bool = False,
+                   output_prefix: str = "solution",
                    timer=None, dirichlet_g=None, exact_override=None,
                    initial_v_fn=None, probe_points=None,
                    functionals_path: str | None = None,
@@ -94,12 +97,11 @@ def run_heat_cycle(refinement: int, fe_degree: int,
     and "step" (one slab solve, synchronized).  on_slab(integrator, time,
     time_step, prev_x, x, stats), if given, is called after each slab,
     outside the timed scope (chip_smoke.py's independent residual check
-    and profiled slab)."""
+    and profiled slab).  do_output writes the last time block of each slab
+    n (from 1) on the dof grid to {output_prefix}_{n:04d}.vtk."""
     if dirichlet_g is not None or distort_grid != 0.0:
         raise NotImplementedError("inhomogeneous Dirichlet data and mesh "
                                   "distortion are not ported")
-    if do_output:
-        raise NotImplementedError("VTK output is not ported")
     device = torch.device(device)
     f64 = torch.float64
     scope = timer.scope if timer is not None else (lambda *a, **k:
@@ -239,6 +241,11 @@ def run_heat_cycle(refinement: int, fe_degree: int,
         if wave:
             prev_v = v[-1]
         time += n_timesteps_at_once * time_step
+        if do_output:
+            # reference tp_01.cc:636-644, stfem_tpu drivers/heat.py:241-246
+            write_vtk(f"{output_prefix}_{len(iters):04d}.vtk",
+                      mesh.dof_coordinates(space_degree),
+                      prev_x.cpu().numpy())
 
     return CycleResult(
         n_cells=mesh.n_cells, n_dofs=mesh.n_dofs(space_degree),

@@ -20,7 +20,10 @@ configs/tp01_practical_3d.json (16^3 cells, Q3 x dG(2), 8 steps per slab,
 configs tf01..tf08 from the directory STFEM_TESTDIR names, with the
 reference's section headers, as stfem_tpu's default does; the committed
 3D convergence configs are configs/tp01_convergence_3d_heat_dg1.json and
-configs/tp01_convergence_3d_wave_cgp2.json.
+configs/tp01_convergence_3d_wave_cgp2.json.  The *_chebyshev.json
+configs are the practical and heat convergence ones with the Chebyshev
+smoother and the GMRES coarse solve.  "doOutput" writes one binary VTK
+file per slab into the working directory.
 """
 from __future__ import annotations
 

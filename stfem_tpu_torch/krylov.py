@@ -1,5 +1,7 @@
 """Outer solvers (counterpart of stfem_tpu/krylov.py): preconditioned
-Richardson, flexible GMRES and the error-propagator radius estimate.
+Richardson, Chebyshev-accelerated iteration, flexible GMRES, the
+fixed-iteration left-preconditioned GMRES of the GMG coarse solve and the
+error-propagator radius estimate.
 
 Convergence semantics follow deal.II's ReductionControl: stop when
 ||r|| <= max(abstol, reltol * ||r0||) (the benches pass bench.py's abstol
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .utils.precision import full_precision
@@ -43,6 +46,94 @@ def richardson_solve(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     return SolveResult(x=x, iterations=j,
                        residual=res / (beta if beta != 0 else 1.0),
                        converged=res <= tol)
+
+
+def chebyshev_solve(A: Callable, b: torch.Tensor, x0: torch.Tensor,
+                    precondition: Callable, lambda_min: float,
+                    lambda_max: float, maxiter: int = 100,
+                    abstol: float = 1e-30,
+                    reltol: float = 1e-8) -> SolveResult:
+    """Chebyshev-accelerated preconditioned iteration for spec(P A) within
+    [lambda_min, lambda_max] (real and positive; estimate_error_propagator_
+    radius gives the interval [1 - rho, 1 + rho]): deal.II's first-kind
+    recurrence on the correction from x0, one step always, then a
+    true-residual stop test per step, ||r|| <= max(abstol, reltol ||r0||).
+    The step costs what a Richardson step costs."""
+    theta = (lambda_max + lambda_min) / 2.0
+    delta = max((lambda_max - lambda_min) / 2.0, 1e-30)
+    r = b - A(x0)
+    beta = _norm(r)
+    tol = max(abstol, reltol * beta)
+    # e carries the previous increment (deal.II's `update` vector)
+    e = precondition(r) * (1.0 / theta)
+    x = x0 + e
+    r = b - A(x)
+    res, j, rhok = _norm(r), 1, delta / theta
+    sigma = 2.0 * theta / delta
+    while j < maxiter and res > tol:
+        rho_new = 1.0 / (sigma - rhok)
+        e = rho_new * rhok * e + (2.0 * rho_new / delta) * precondition(r)
+        x = x + e
+        r = b - A(x)
+        res, j, rhok = _norm(r), j + 1, rho_new
+    return SolveResult(x=x, iterations=j,
+                       residual=res / (beta if beta != 0 else 1.0),
+                       converged=res <= tol)
+
+
+def _least_squares(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """argmin ||beta e1 - H y|| of minimum norm for the (m + 1) x m
+    Hessenberg matrix H, on the host in float64, singular values below
+    eps(H's dtype) (m + 1) of the largest cut as stfem_tpu's lstsq cuts
+    them; y on H's device.  The one host read of the coarse solve; a
+    non-finite value raises."""
+    m = H.shape[1]
+    Hb = torch.cat([H.reshape(-1), beta.reshape(1)]).to(
+        torch.float64).cpu().numpy()
+    if not np.all(np.isfinite(Hb)):
+        raise FloatingPointError("GMRES coarse solve: non-finite Hessenberg "
+                                 "matrix or rhs")
+    e1 = np.zeros(m + 1)
+    e1[0] = Hb[-1]
+    eps = torch.finfo(H.dtype if H.dtype != torch.bfloat16
+                      else torch.float32).eps
+    y = np.linalg.lstsq(Hb[:-1].reshape(m + 1, m), e1,
+                        rcond=eps * (m + 1))[0]
+    return torch.as_tensor(y, dtype=H.dtype, device=H.device)
+
+
+def gmres_fixed_left(A: Callable, b: torch.Tensor, precondition: Callable,
+                     n_iter: int) -> torch.Tensor:
+    """Left-preconditioned GMRES with exactly n_iter iterations from a zero
+    guess (the reference's coarse solve: deal.II SolverGMRES under
+    IterationNumberControl, stmg.h:1240-1302): classical Gram-Schmidt
+    with a second pass, a zero basis vector after a breakdown, and the
+    least-squares problem's minimum-norm solution (_least_squares).  So a
+    zero rhs gives zero, and a system with fewer unknowns than n_iter its
+    solution."""
+    shape, dtype = b.shape, b.dtype
+    m = n_iter
+    pb = precondition(b).reshape(-1)
+    beta = torch.linalg.vector_norm(pb)
+    V = torch.zeros((m + 1, pb.numel()), dtype=dtype, device=b.device)
+    V[0] = torch.where(beta > 0, pb / torch.where(beta == 0, 1, beta), 0)
+    H = torch.zeros((m + 1, m), dtype=dtype, device=b.device)
+    with full_precision():
+        for j in range(m):
+            w = precondition(A(V[j].reshape(shape))).reshape(-1)
+            Vj = V[:j + 1]
+            h1 = Vj @ w
+            w = w - Vj.T @ h1
+            h2 = Vj @ w
+            w = w - Vj.T @ h2
+            wnorm = torch.linalg.vector_norm(w)
+            H[:j + 1, j] = h1 + h2
+            H[j + 1, j] = wnorm
+            V[j + 1] = torch.where(wnorm > 0,
+                                   w / torch.where(wnorm == 0, 1, wnorm), 0)
+    y = _least_squares(H, beta)
+    with full_precision():
+        return (V[:m].T @ y).reshape(shape)
 
 
 def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
