@@ -10,8 +10,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
   3. K1 parity: time_solve kernel vs its plain torch version at the bench
      shape (S=32, nt=3, N=512,000), bf16 and f32, at the coefficient
      path's cell-local Vanka shapes (S=8, nt=3 and S=4, nt=2 at
-     N=262,144), f32, and at nt=5 (dG(4), S=2, N=96^3), f32, with both
-     times;
+     N=262,144), f32, at the distorted path's finest cell-mode level
+     (S=2, nt=2, N=32^3 x 27), f32, and at nt=5 (dG(4), S=2, N=96^3),
+     f32, with both times;
   4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
      B=128 in float64, with both times and the share of the bound;
   4b. K3 parity: banded_apply kernel vs its plain torch version along each
@@ -144,6 +145,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
      within 1e-8, iterations within 1.  launches_by_path gains "chebyshev
      practical", "chebyshev convergence" (the 16^3/32^3 sweep) and
      "chebyshev stokes" (the 256^2 lid), each without (d)'s launches.
+ 15. the distorted-mesh heat path (drivers/heat.py::run_heat_cycle with
+     distort_grid, the "cell" operator route, the cell-mode Vanka on
+     every level) and the repaired gates: (a) a 3D Q4 mesh with graded
+     steps on every axis (16^3 cells, 8 time blocks): SystemMatrix.vmult
+     (route "kron", K2) and a 2D vmult_slice (K3) against the operators'
+     own apply within 1e-12 relative in FP64, K2 and K3 launching, and
+     one grid-mode Vanka apply (K4, K1) within 1e-5 of its plain version;
+     (b) run_heat_cycle in 3D, Q2 x dG(1), 2 steps a slab, distortion
+     0.15, 32^3 cells (1,098,500 unknowns a slab), 1 slab (2 until the
+     smoke passed 1000 s): per slab the
+     FGMRES iterations, an FP64 true residual through masked element
+     matrices within 2x of FGMRES's stop test, the wall, K1's launches
+     and, from the slab solved again under the profiler, K1's device time
+     and the busy share; the levels' routes and Vanka modes and one
+     V-cycle under the profiler; K1 must launch (launches_by_path
+     "distorted": this run's alone); (c) the same cycle at 4^3 on the
+     card and on the CPU: its FP64 slab operator and rhs coupling on the
+     same inputs within 1e-13, the card's V-cycle given the CPU's
+     omegas (its own printed beside them), one float32 V-cycle within
+     1e-5, equal FGMRES iterations, the solutions and l2 norms within
+     1e-10; (d) the bench
+     Stokes hierarchy built twice, one V-cycle of each bitwise equal,
+     and bench_stokes once more with phase 9's first-slab V-cycles.
 Then it prints the nvidia-smi line, a JSON line describing the kernels
 (launches over all main paths and by path),
 and, last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -1105,6 +1129,329 @@ def chebyshev_phase(wrappers, dev, relaxation, lid) -> dict:
     return by_path
 
 
+def _element_apply(E, v, cells, k):
+    """y = sum over cells of E_c times v's local dofs, overlap-added:
+    [..., *dofshape] -> [..., *dofshape] (masked element matrices: no code
+    shared with SystemMatrix's routes)."""
+    import torch
+    from stfem_tpu_torch.ops.spatial import cell_gather, cell_scatter
+    dim = len(cells)
+    lead = v.shape[:v.ndim - dim]
+    u = cell_gather(v, cells, k).reshape(lead + (E.shape[0], E.shape[1]))
+    y = torch.einsum("cab,...cb->...ca", E, u)
+    return cell_scatter(y.reshape(lead + tuple(cells) + (k + 1,) * dim),
+                        cells, k)
+
+
+def _rel_max(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def stepped_checks(wrappers, dev, gen) -> None:
+    """Phase 15(a): the heat stack on graded per-axis steps (F1 on the
+    card).  Raises on a failed check."""
+    import torch
+    from stfem_tpu_torch.mesh.grid import StructuredMesh
+    from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
+    from stfem_tpu_torch.stmg.vanka import PreconditionVanka
+    from stfem_tpu_torch.system import SystemMatrix
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+
+    f32, f64 = torch.float32, torch.float64
+    # graded steps, another ratio on each axis: 4 base steps, 16 cells
+    steps = [list(b / b.sum()) for b in (np.geomspace(1.0, r, 4)
+                                         for r in (2.0, 0.4, 3.0))]
+    A, B, G, _ = get_fe_time_weights(TimeStepType.DG, 1, 1.0 / 64, 4)
+    zero = np.zeros_like(G)
+
+    def ops(mesh, dtype, device):
+        return (LaplaceMassOperator(mesh, 4, 5, 0.0, 1.0, dtype=dtype,
+                                    device=device),
+                LaplaceMassOperator(mesh, 4, 5, 1.0, 0.0, dtype=dtype,
+                                    device=device))
+
+    def mixed(T, Kx, Mx, T2):
+        return (torch.einsum("ji,i...->j...", T, Kx)
+                + torch.einsum("ji,i...->j...", T2, Mx))
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    mesh = StructuredMesh([4] * 3, [0.0] * 3, None, refinement=2,
+                          axis_steps=steps)
+    K, M = ops(mesh, f64, dev)
+    sm = SystemMatrix(K, M, A, B)
+    x = torch.randn((A.shape[0],) + mesh.dof_shape(4), generator=gen,
+                    device=dev, dtype=f64)
+    reset()
+    y = sm.vmult(x)
+    k2 = wrappers["kron_pair"].launches
+    At, Bt = (torch.as_tensor(t, dtype=f64, device=dev) for t in (A, B))
+    err3 = _rel_max(y, mixed(At, K.apply(x), M.apply(x), Bt))
+    mesh2 = StructuredMesh([4] * 2, [0.0] * 2, None, refinement=3,
+                           axis_steps=steps[:2])
+    K2, M2 = ops(mesh2, f64, dev)
+    prev = torch.randn(mesh2.dof_shape(4), generator=gen, device=dev,
+                       dtype=f64)
+    reset()
+    ys = SystemMatrix(K2, M2, zero, G).vmult_slice(prev)
+    k3 = wrappers["banded_apply"].launches
+    Gt = torch.as_tensor(G[:, 0], dtype=f64, device=dev)
+    err2 = _rel_max(ys, Gt.reshape(-1, 1, 1) * M2.apply(prev)[None])
+    grading = [round(float(st[-1] / st[0]), 3) for st in steps]
+    print(f"# stepped 3D Q4 16^3 (last / first base step {grading}), 8 "
+          f"blocks: SystemMatrix route {sm.route} vmult vs the "
+          f"operators' own apply, max rel {err3:.2e} (tol 1e-12), K2 "
+          f"launches {k2}; 2D Q4 32^2 vmult_slice max rel {err2:.2e} (tol "
+          f"1e-12), K3 launches {k3}", flush=True)
+    if not (sm.route == "kron" and err3 <= 1e-12 and err2 <= 1e-12
+            and k2 > 0 and k3 > 0):
+        raise AssertionError("stepped mesh: the FP64 operator or its "
+                             "kernels failed")
+    # one grid-mode Vanka apply (K4 down, K1, K4 up) against the same
+    # smoother built on the CPU (the kernels' plain versions)
+    vk = [PreconditionVanka(*ops(mesh, f32, where), A, B, dtype=f32,
+                            n_steps=4)
+          for where in (dev, torch.device("cpu"))]
+    r = torch.randn(x.shape, generator=gen, device=dev) * vk[0].K_op.mask
+    reset()
+    yv = vk[0].vmult(r)
+    k4 = wrappers["chain_down"].launches + wrappers["chain_up"].launches
+    k1 = wrappers["time_solve"].launches
+    errv = _rel_max(yv.cpu(), vk[1].vmult(r.cpu()))
+    print(f"# stepped 3D Q4 16^3: grid-mode Vanka (float32, 4 steps) on "
+          f"the card vs the plain version, max rel {errv:.2e} (tol 1e-5); "
+          f"K4 launches {k4}, K1 launches {k1}", flush=True)
+    if not (vk[0].mode == "grid" and errv <= 1e-5 and k4 > 0 and k1 > 0):
+        raise AssertionError("stepped mesh: the grid-mode Vanka failed")
+    del vk, sm, K, M, K2, M2
+    torch.cuda.empty_cache()
+
+
+def distorted_phase(wrappers, dev, refinement: int = 5) -> dict:
+    """Phase 15(b, c): the distorted-mesh heat path.  (b) run_heat_cycle
+    in 3D, Q2 x dG(1), 2 steps a slab, distortion 0.15, 32^3 cells, 1
+    slab: per slab the FGMRES iterations, an FP64 true residual through
+    masked element matrices (no code shared with the "cell" route) against
+    FGMRES's stop test, the slab wall, K1's launches and, from the slab
+    solved again under the profiler, K1's device time and the busy share;
+    then one V-cycle under the profiler.  (c) distorted_card_cpu.
+    Returns (b)'s launches (counts set to 0 just before it)."""
+    import torch
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.drivers.heat import (run_heat_cycle,
+                                              stmg_preconditioner_factory)
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    f64 = torch.float64
+    cycle = dict(fe_degree=1, type_=TimeStepType.DG, n_timesteps_at_once=2,
+                 subdivisions=(1, 1, 1), lower=(0.0,) * 3, upper=(1.0,) * 3,
+                 distort_grid=0.15)
+    base = stmg_preconditioner_factory(fe_degree_min=1)
+    marks, rows, held = [], [], {}
+
+    def factory(ctx):
+        gmg = base(ctx)
+        marks.append(wrappers["time_solve"].launches)
+        return gmg
+
+    def on_slab(integ, t, dt, prev, x, stats):
+        marks.append(wrappers["time_solve"].launches)
+        K, M = integ.matrix.K, integ.matrix.M
+        if "EK" not in held:
+            held.update(EK=K.element_matrices(), EM=M.element_matrices())
+        EK, EM, cells = held["EK"], held["EM"], K.cells
+        A, B, G, _ = (torch.as_tensor(t_, dtype=f64, device=dev) for t_ in
+                      get_fe_time_weights(TimeStepType.DG, 1, dt, 2))
+
+        def apply(v):
+            return (torch.einsum("ji,i...->j...", A,
+                                 _element_apply(EK, v, cells, 2))
+                    + torch.einsum("ji,i...->j...", B,
+                                   _element_apply(EM, v, cells, 2)))
+
+        rhs = (G[:, 0].reshape(-1, 1, 1, 1)
+               * _element_apply(EM, prev, cells, 2)[None]
+               + integ.assemble_force(t, dt))
+        rn = float((rhs - apply(x)).norm())
+        r0 = float((rhs - apply(integ._extrapolate(prev))).norm())
+        tol = max(integ.abstol, integ.reltol * r0)
+        saved = {name: w.launches for name, w in wrappers.items()}
+        prof = bench_heat.profile_slab(lambda: integ.solve(prev, t, dt), dev,
+                                       top=6)
+        for name, w in wrappers.items():      # the re-solve is not the path
+            w.launches = saved[name]
+        rows.append(dict(iters=stats.iterations, rn=rn, r0=r0, tol=tol,
+                         rhs=float(rhs.norm()), est=stats.residual,
+                         k1=prof["port_kernels_ms"]["time_solve"],
+                         busy=prof["device_busy_share"],
+                         wall_prof=prof["wall_s"],
+                         launches=prof["n_kernel_launches"],
+                         top=prof["top_ops_ms"][:5]))
+        held.update(integ=integ, rhs=rhs)
+        marks.append(wrappers["time_solve"].launches)
+
+    for w in wrappers.values():
+        w.launches = 0
+    timer = TimerOutput()
+    wall0 = time.time()
+    res = run_heat_cycle(refinement=refinement,
+                         preconditioner_factory=factory, timer=timer,
+                         device=dev, on_slab=on_slab, n_slabs_max=1,
+                         **cycle)
+    wall = time.time() - wall0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    st_dofs = res.n_blocks * res.n_dofs
+    n = 2 ** refinement
+    print(f"# distorted 3D Q2 x dG(1) {n}^3, distortion 0.15, 2 steps a "
+          f"slab ({st_dofs} space-time DoFs a slab): setup "
+          f"{timer.totals['setup']:.2f} s (hierarchy "
+          f"{timer.totals['setup:gmg']:.2f} s), phase wall {wall:.1f} s "
+          f"(with the profiled re-solves); errors over {res.n_timesteps} "
+          f"slabs l2 {res.l2_l2:.6e} h1 {res.l2_h1:.6e}", flush=True)
+    ok = len(rows) == 1
+    for i, (row, w) in enumerate(zip(rows, timer.times["step"])):
+        k1_timed = marks[2 * i + 1] - marks[2 * i]
+        print(f"# distorted slab {i}: FGMRES iterations {row['iters']}, "
+              f"slab wall {w:.4f} s, {st_dofs / w:.4e} space-time DoF/s; "
+              f"true FP64 ||r|| {row['rn']:.3e} (/||rhs|| "
+              f"{row['rn'] / row['rhs']:.3e}) vs FGMRES tol "
+              f"{row['tol']:.3e}, Givens estimate {row['est']:.3e}; K1 "
+              f"launches {k1_timed}; the slab again under the profiler: K1 "
+              f"{row['k1']} (launches, device ms), device busy share "
+              f"{row['busy']:.4f} of {row['wall_prof']:.4f} s wall, "
+              f"{row['launches']} launches, top ops (ms) {row['top']}",
+              flush=True)
+        ok = ok and row["rn"] <= 2.0 * row["tol"] and k1_timed > 0
+    gmg = held["integ"].preconditioner
+    levels = [(lvl.dof_shape, lvl.matrix.route,
+               getattr(getattr(lvl.smoother, "precond", None), "mode", None))
+              for lvl in gmg.levels]
+    v = held["rhs"] / held["rhs"].norm()
+    vprof = bench_heat.profile_slab(lambda: gmg(v), dev, top=6)
+    print(f"# distorted {n}^3: levels (dof shape, route, Vanka mode) "
+          f"{levels}; {_vanka_levels(gmg)}; one V-cycle alone (untimed): "
+          f"{vprof['n_kernel_launches']} launches, {vprof['wall_s']:.4f} s "
+          f"wall, device busy share {vprof['device_busy_share']:.4f}; K1 "
+          f"{vprof['port_kernels_ms']['time_solve']} (launches, device "
+          f"ms); top ops (ms) {vprof['top_ops_ms'][:5]}; launches {counts}",
+          flush=True)
+    if not ok or counts["time_solve"] == 0:
+        raise AssertionError("distorted path: a slab missed its residual "
+                             "or K1 never ran")
+    held.clear()
+    del gmg, v
+    torch.cuda.empty_cache()
+
+    distorted_card_cpu(dev, dict(cycle, n_slabs_max=2))
+    return counts
+
+
+def distorted_card_cpu(dev, cycle) -> None:
+    """Phase 15(c): the distorted cycle (`cycle`, phase 15(b)'s keys) at
+    4^3 on the CPU and then on the card, the card's V-cycle built by the
+    same factory and given the CPU's relaxation omegas: the FP64 slab
+    operator and rhs coupling on the same inputs within 1e-13, one
+    float32 V-cycle within 1e-5, the FGMRES iterations equal and the
+    solutions and l2 norms within 1e-10.
+    The card's own omegas are printed beside the CPU's: on the finest
+    level ARPACK converges or fails by the float32 rounding of its
+    sweeps, in stfem_tpu as in the port (ROADMAP.md section 3), and a
+    failure takes the 1.2-safety power estimate.  Raises on any failed
+    check."""
+    import torch
+    from stfem_tpu_torch.drivers.heat import (run_heat_cycle,
+                                              stmg_preconditioner_factory)
+    from stfem_tpu_torch.utils.carry import load_gmg
+
+    omegas = lambda gmg: [getattr(lvl.smoother, "omega", None)
+                          for lvl in gmg.levels]
+    held, out, own = {}, {}, []
+    for key, where in (("cpu", "cpu"), ("card", dev)):
+        base4 = stmg_preconditioner_factory(fe_degree_min=1)
+
+        def fac(ctx, key=key, base4=base4):
+            gmg = base4(ctx)
+            if key == "card":
+                own[:] = omegas(gmg)
+                load_gmg(gmg, omegas(held["cpu"][0]))
+            held[key] = [gmg]
+            return gmg
+
+        out[key] = run_heat_cycle(
+            refinement=2, preconditioner_factory=fac, device=where,
+            on_slab=lambda integ, *a, key=key: held[key].append(integ),
+            **cycle)
+    g, c = out["card"], out["cpu"]
+    (gmg_g, integ_g), (gmg_c, integ_c) = held["card"][:2], held["cpu"][:2]
+    rng = np.random.default_rng(15)
+    x = torch.as_tensor(rng.standard_normal(
+        (g.n_blocks,) + tuple(integ_c.matrix.K.dof_shape)))
+    errs = [_rel_max(ig.vmult(xi.to(dev)).cpu(), ic.vmult(xi))
+            for ig, ic, xi in ((integ_g.matrix, integ_c.matrix, x),
+                               (integ_g.rhs_matrix, integ_c.rhs_matrix,
+                                x[:1]))]
+    om_c = omegas(gmg_c)
+    om_rel = max((abs(a / b - 1.0) for a, b in zip(own, om_c)
+                  if a is not None and b is not None), default=0.0)
+    v = x.float()
+    err_v = _rel_max(gmg_g(v.to(dev)).cpu(), gmg_c(v))
+    diff = _rel_max(g.solution.cpu(), c.solution)
+    err_l2 = abs(g.l2_l2 / c.l2_l2 - 1.0)
+    print(f"# distorted 4^3 card vs CPU: FP64 slab operator (route {integ_g.matrix.route}) max rel "
+          f"{errs[0]:.2e}, rhs coupling {errs[1]:.2e} (tol 1e-13); the "
+          f"card's own omegas {own}, the CPU's {om_c} (up to "
+          f"{om_rel:.2e} apart; the card runs the CPU's); one float32 "
+          f"V-cycle {err_v:.2e} (tol 1e-5); FGMRES iterations/slab gpu "
+          f"{g.slab_iterations} cpu {c.slab_iterations} (equal), last "
+          f"block max rel {diff:.2e} (tol 1e-10), l2 gpu "
+          f"{g.l2_l2:.12e} cpu {c.l2_l2:.12e} (rel {err_l2:.2e}, tol "
+          f"1e-10)", flush=True)
+    if not (max(errs) <= 1e-13 and err_v <= 1e-5
+            and g.slab_iterations == c.slab_iterations
+            and diff <= 1e-10 and err_l2 <= 1e-10):
+        raise AssertionError("distorted 4^3: card and CPU differ")
+
+
+def stokes_repeat_check(dev, gen, first_iters) -> None:
+    """Phase 15(d): the bench Stokes hierarchy built twice, one V-cycle of
+    each on the same vector bitwise equal, with equal level parameters;
+    then bench_stokes once more: its first timed slab's V-cycles against
+    phase 9's (`first_iters`)."""
+    import torch
+    from stfem_tpu_torch import bench_stokes
+    from stfem_tpu_torch.mesh.grid import StructuredMesh
+    from stfem_tpu_torch.stmg.gmg import GMGParams, build_stmg_stokes
+    from stfem_tpu_torch.types import TimeStepType
+
+    mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=2)
+    outs, params = [], []
+    for _ in range(2):
+        gmg = build_stmg_stokes(mesh, 1, TimeStepType.DG, 8, 1.0 / 16,
+                                params=GMGParams(smoothing_range=5.0),
+                                dtype=torch.float32, device=dev)
+        if not outs:
+            v = torch.randn((gmg.levels[-1].n_blocks,)
+                            + gmg.levels[-1].dof_shape, generator=gen,
+                            device=dev)
+        outs.append(gmg.vmult(v))
+        params.append([getattr(lvl.smoother, "omega", None)
+                       for lvl in gmg.levels])
+        del gmg
+    same = bool(torch.equal(outs[0], outs[1])) and params[0] == params[1]
+    info, _ = bench_stokes.run(8, 8, n_slabs=2, device="cuda")
+    print(f"# stokes repeat: two builds of the bench hierarchy, one V-cycle "
+          f"each: bitwise equal {same} (omegas {params[0]}); bench_stokes "
+          f"again: V-cycles/slab {info['iters']} against phase 9's "
+          f"{first_iters}", flush=True)
+    if not (same and info["iters"][0] == first_iters[0]):
+        raise AssertionError("stokes: two runs of the same code differ")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1164,14 +1511,17 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     report, extras = {}, {}
 
-    # 3. K1 parity at the heat bench's shape and at the coefficient path's
+    # 3. K1 parity at the heat bench's shape, at the coefficient path's
     #    cell-local Vanka shapes (16^3 Q3: N = C A = 262,144; dG(2) levels
-    #    with 8 and 4 steps, dG(1) levels with 4)
+    #    with 8 and 4 steps, dG(1) levels with 4) and at the distorted
+    #    path's finest cell-mode level (32^3 Q2: N = C A = 884,736; dG(1),
+    #    2 steps; its coarser levels are the same call on fewer cells)
     for S, nt, N, dts in (
             (32, 3, (16 * 5) ** 3, ((torch.bfloat16, 8e-3),
                                     (torch.float32, 1e-5))),
             (8, 3, 4096 * 64, ((torch.float32, 1e-5),)),
             (4, 2, 4096 * 64, ((torch.float32, 1e-5),)),
+            (2, 2, 32 ** 3 * 27, ((torch.float32, 1e-5),)),
             # dG(4) (nt = 5) at the grid Vanka of a 16^3 Q5 level, 2 steps
             (2, 5, 96 ** 3, ((torch.float32, 1e-5),))):
         G = (0.3 * torch.randn((nt, nt, N), generator=gen, device=dev))
@@ -1513,6 +1863,8 @@ def main() -> int:
               f"{[round(t, 3) for t in info['slab_host_cpu_s']]} s of "
               f"dispatch-thread CPU", flush=True)
         print(json.dumps(bench.metric_line(info)), flush=True)
+        if label == "stokes":
+            stokes_iters = info["iters"]
         print(f"# {label} {args[0]}^3 ntao={args[1]}: V-cycles/slab "
               f"{info['iters']}, TRUE rel {info['true_rels']}, probe floor "
               f"{info['probe_floor']:.3e}, setup {info['setup_s']:.1f} s, "
@@ -1573,6 +1925,21 @@ def main() -> int:
             launches[name] += c
         by_path[label] = counts
     phase_done("chebyshev")
+
+    # 15. the distorted-mesh heat path: (a) the heat stack on graded steps,
+    #     (b) run_heat_cycle on the distorted 32^3 mesh (its launches are
+    #     the path's), (c) 4^3 on the card against the CPU, (d) the Stokes
+    #     path's repeatability
+    stepped_checks(wrappers, dev, gen)
+    counts = distorted_phase(wrappers, dev)
+    missing = [n for n in ("time_solve",) if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"distorted: kernels never ran: {missing}")
+    for name, c in counts.items():
+        launches[name] += c
+    by_path["distorted"] = counts
+    stokes_repeat_check(dev, gen, stokes_iters)
+    phase_done("distorted")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

@@ -7,9 +7,11 @@ Ported: the heat equation (DG and CGP) with an optional coefficient
 field, initial value and rhs override, and the acoustic wave (DG and
 CGP, the Schur-reduced u-solve with the velocity recovered per slab);
 the space-time error norms against the manufactured solution (or
-exact_override), point probes, a timer, and one binary VTK file of the
-slab's last time block per slab.  Strong inhomogeneous Dirichlet data
-and mesh distortion are not ported and raise.
+exact_override), point probes, a timer, one binary VTK file of the
+slab's last time block per slab, and random mesh distortion (the
+reference's distortGrid, tp_01.cc:83-90: Q1 cells, the "cell" operator
+route and the cell-local Vanka on every level).  Strong inhomogeneous
+Dirichlet data is not ported and raises.
 Everything runs on `device` (the card unless the caller asks for the
 CPU)."""
 from __future__ import annotations
@@ -83,7 +85,8 @@ def run_heat_cycle(refinement: int, fe_degree: int,
                    timer=None, dirichlet_g=None, exact_override=None,
                    initial_v_fn=None, probe_points=None,
                    functionals_path: str | None = None,
-                   device="cuda", on_slab=None) -> CycleResult:
+                   device="cuda", on_slab=None,
+                   n_slabs_max: int | None = None) -> CycleResult:
     """One tp_01 cycle (reference tp_01.cc:56-725).
 
     preconditioner_factory(ctx) -> callable builds the preconditioner from
@@ -98,10 +101,12 @@ def run_heat_cycle(refinement: int, fe_degree: int,
     time_step, prev_x, x, stats), if given, is called after each slab,
     outside the timed scope (chip_smoke.py's independent residual check
     and profiled slab).  do_output writes the last time block of each slab
-    n (from 1) on the dof grid to {output_prefix}_{n:04d}.vtk."""
-    if dirichlet_g is not None or distort_grid != 0.0:
-        raise NotImplementedError("inhomogeneous Dirichlet data and mesh "
-                                  "distortion are not ported")
+    n (from 1) on the dof grid to {output_prefix}_{n:04d}.vtk.
+    n_slabs_max, if given, stops the march after that many slabs (the
+    error norms then cover those slabs)."""
+    if dirichlet_g is not None:
+        raise NotImplementedError("inhomogeneous Dirichlet data is not "
+                                  "ported")
     device = torch.device(device)
     f64 = torch.float64
     scope = timer.scope if timer is not None else (lambda *a, **k:
@@ -122,7 +127,7 @@ def run_heat_cycle(refinement: int, fe_degree: int,
 
     with scope("setup"):
         mesh = StructuredMesh(subdivisions, lower, upper,
-                              refinement=refinement)
+                              refinement=refinement, distort=distort_grid)
         # reference tp_01.cc:87,105-108: the step from the UNREFINED cell
         # size; short horizons get one step
         spc_step = mesh.coarse_cell_diameter / np.sqrt(dim)
@@ -207,7 +212,8 @@ def run_heat_cycle(refinement: int, fe_degree: int,
     time, iters = 0.0, []
     l2 = h1 = 0.0
     linf = -1.0
-    while time < end_time - 1e-12:
+    while time < end_time - 1e-12 and (n_slabs_max is None
+                                       or len(iters) < n_slabs_max):
         with scope("step", sync=device):
             if wave:
                 x, v, stats = step.solve_wave(prev_x, prev_v, time,

@@ -85,6 +85,9 @@ def run_single(p: Parameters, k: int, ref: int,
             rhs_fn_override=lambda pts, t: torch.zeros_like(pts[..., 0]),
             compute_errors=False, probe_points=PROBES[p.dim],
             functionals_path=p.functional_file)
+    # p.distort_grid is parsed but not passed on, as stfem_tpu's tp01 does
+    # (stfem_tpu/drivers/tp01.py:65-75); run_heat_cycle(distort_grid=)
+    # takes it from a library call
     return run_heat_cycle(
         refinement=ref, fe_degree=k, type_=p.type, problem=p.problem,
         n_timesteps_at_once=p.n_timesteps_at_once,

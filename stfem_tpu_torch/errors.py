@@ -10,11 +10,10 @@ tensor Gauss points of every cell, and compared with the exact solution:
     err_H1  += tau w_q |e|_H1^2.
 All time points of a slab go through one batched sum-factorised pass on
 the tensors' device, in float64; each norm is a 0-d tensor (no host sync).
-
-Only the uniform Cartesian geometry is ported, the only one the port's
-meshes have (mesh/grid.py; run_heat_cycle raises for a distorted grid):
-stfem_tpu's mapped and non-uniform-step evaluation paths come with mesh
-distortion.
+The physical gradients follow stfem_tpu's three geometry paths: one
+diagonal inverse Jacobian (uniform, also masked), per-cell inverse steps
+(axis steps), or full inverse Jacobians at every quadrature point
+(distorted, Q1-mapped or exactly mapped cells).
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ import torch
 
 from .mesh.fe import shape_data_1d
 from .mesh.grid import StructuredMesh
-from .ops.spatial import _sumfac, cell_gather
+from .ops.spatial import _sumfac, cell_gather, geometry_factors
 from .time.quadrature import gauss
 from .time.tables import get_time_basis
 from .types import TimeStepType
@@ -34,7 +33,7 @@ __all__ = ["ErrorCalculator", "SpatialEvaluator"]
 class SpatialEvaluator:
     """Values and physical gradients of a dof-grid field [..., *dofshape] at
     the tensor Gauss points, [..., *cells, *q] and [..., *cells, *q, dim]
-    (the Cartesian path of stfem_tpu's SpatialEvaluator)."""
+    (stfem_tpu/errors.py::SpatialEvaluator, all three geometry paths)."""
 
     def __init__(self, mesh: StructuredMesh, degree: int, n_q: int,
                  dtype=torch.float64, device="cuda"):
@@ -46,7 +45,9 @@ class SpatialEvaluator:
         sd = shape_data_1d(degree, n_q)
         self.S, self.D = as_t(sd.S), as_t(sd.D)
         self.jxw = as_t(geom.jxw)
-        self.jinv_diag = [float(j) for j in geom.jinv_diag]
+        # jinv[..., e, d] = d xi_e / d x_d, or per-axis factors jfac[e]
+        self.jfac, self.jinv = geometry_factors(geom, mesh.cells, dtype,
+                                                device)
         self.coords = as_t(mesh.quad_coordinates(n_q))
 
     def _ref(self, uc, e=None):
@@ -58,8 +59,13 @@ class SpatialEvaluator:
 
     def gradients(self, u: torch.Tensor) -> torch.Tensor:
         uc = cell_gather(u, self.mesh.cells, self.degree)
-        return torch.stack([self._ref(uc, e) * self.jinv_diag[e]
-                            for e in range(self.dim)], dim=-1)
+        ref = [self._ref(uc, e) for e in range(self.dim)]
+        if self.jinv is not None:
+            # d u / d x_d = sum_e (d u / d xi_e) jinv[..., e, d]
+            return torch.einsum("...e,...ed->...d", torch.stack(ref, -1),
+                                self.jinv)
+        return torch.stack([ref[e] * self.jfac[e] for e in range(self.dim)],
+                           dim=-1)
 
 
 class ErrorCalculator:

@@ -39,7 +39,10 @@ class ForceAssembler:
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
         self.S = as_t(shape_data_1d(degree, n_q).S)
         self.jxw = as_t(mesh.geometry(n_q).jxw)
-        self.coords = as_t(mesh.quad_coordinates(n_q))
+        # stfem_tpu evaluates the rhs at the undistorted grid's Gauss
+        # points also on a distorted mesh (its quad_coordinates ignores the
+        # vertices), while jxw is the distorted cells': kept for parity
+        self.coords = as_t(mesh.tensor_quad_coordinates(n_q))
         self.rhs_fn = rhs_fn
         self.mask = as_t(np.asarray(mask))
 

@@ -10,17 +10,22 @@ bounding box} and, optionally,
   * an exact vertex map (a smooth torch function on [..., dim] points, the
     squircle morph that turns the square obstacle into the DFG cylinder):
     quadrature points and Jacobians come from the map itself, through
-    torch.func, once, in float64.
+    torch.func, once, in float64,
+  * explicit vertices: a random distortion of the interior vertices
+    (deal.II's GridTools::distort_random, reference tp_01.cc:83-90, with
+    stfem_tpu's NumPy stream) or a vertex map applied to the vertex grid
+    alone (map_exact False); every cell is then the Q1 (multilinear) image
+    of the unit cube under its corner vertices.
 The uniform mesh keeps one constant quadrature-weight tensor and the
 per-axis inverse cell widths (Geometry.jinv_diag); a non-uniform one has
-per-cell inverse steps (jinv_axis) and a mapped one full inverse
-Jacobians per (cell, quadrature point) (jinv), as stfem_tpu's.  Random
-vertex distortion and the Q1-interpolated vertex map (stfem_tpu's general
-path) are not ported.
+per-cell inverse steps (jinv_axis) and a mapped or Q1 one full inverse
+Jacobians per (cell, quadrature point) (jinv), as stfem_tpu's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import itertools
 
 import numpy as np
 import torch
@@ -60,18 +65,19 @@ def map_jacobians(fmap, x: np.ndarray) -> np.ndarray:
 class StructuredMesh:
     """Tensor-product mesh of a hyper-rectangle (reference
     GridGenerator::subdivided_hyper_rectangle + global refinement), with
-    an optional cell mask, per-axis steps and exact vertex map."""
+    an optional cell mask, per-axis steps, vertex map and random vertex
+    distortion."""
 
     def __init__(self, subdivisions, lower, upper, refinement: int = 0,
+                 distort: float = 0.0, distort_seed: int = 42,
                  cell_mask=None, axis_steps=None, vertex_map=None,
                  map_exact: bool = False):
         """axis_steps: per-axis lists of step widths (subdivisions and
         upper follow from them).  cell_mask: [*cells] of 1.0 (active) and
-        0.0 (removed).  vertex_map: a torch function on [..., dim] float64
-        points; only its exact use (map_exact=True) is ported."""
-        if vertex_map is not None and not map_exact:
-            raise NotImplementedError("a Q1-interpolated vertex map is not "
-                                      "ported: pass map_exact=True")
+        0.0 (removed).  distort: shift every interior vertex by up to
+        distort * min(h) per coordinate (seeded by distort_seed).
+        vertex_map: a torch function on [..., dim] float64 points, used
+        exactly (map_exact) or on the vertices only (Q1 cells)."""
         if axis_steps is not None:
             subdivisions = [len(st) for st in axis_steps]
             upper = [float(lo + np.sum(st))
@@ -94,15 +100,24 @@ class StructuredMesh:
         if self.cell_mask is not None and self.cell_mask.shape != self.cells:
             raise ValueError(f"cell_mask {self.cell_mask.shape} on cells "
                              f"{self.cells}")
+        self.distort = float(distort)
+        # explicit vertex coordinates [*(cells + 1), dim] of a distorted or
+        # Q1-mapped mesh (None: the tensor grid's, or the exact map's)
+        self.vertices = None
+        if distort != 0.0:
+            self.vertices = self._distorted_vertices(distort, distort_seed)
         self.vertex_map = vertex_map
         self.map_exact = bool(map_exact)
+        if vertex_map is not None and not map_exact:
+            self.vertices = map_points(vertex_map, self.vertex_grid())
         self._geometry_cache = {}
 
     @property
     def uniform(self) -> bool:
-        """No cell mask, axis steps or vertex map: every cell alike."""
+        """No cell mask, axis steps, vertex map or distortion: every cell
+        alike."""
         return (self.cell_mask is None and self.axis_steps is None
-                and self.vertex_map is None)
+                and self.vertex_map is None and self.vertices is None)
 
     def base_axis_steps(self):
         """The unrefined per-axis step lists (None on an even grid)."""
@@ -115,18 +130,24 @@ class StructuredMesh:
     def coarsened(self) -> "StructuredMesh":
         """One level coarser: a coarse cell is active iff all its children
         are (masks originate at the base level), the base steps and the
-        map are kept."""
+        map are kept; a distorted mesh's coarse vertices are its even-
+        strided vertices (deal.II's coarsening sequence of a distorted
+        fine triangulation)."""
         assert self.refinement > 0
         cm = self.cell_mask
         if cm is not None:
             for d in range(self.dim):
                 cm = cm.reshape(cm.shape[:d] + (cm.shape[d] // 2, 2)
                                 + cm.shape[d + 1:]).min(axis=d + 1)
-        return StructuredMesh(self.subdivisions, self.lower, self.upper,
-                              refinement=self.refinement - 1, cell_mask=cm,
-                              axis_steps=self.base_axis_steps(),
-                              vertex_map=self.vertex_map,
-                              map_exact=self.map_exact)
+        m = StructuredMesh(self.subdivisions, self.lower, self.upper,
+                           refinement=self.refinement - 1, cell_mask=cm,
+                           axis_steps=self.base_axis_steps(),
+                           vertex_map=self.vertex_map,
+                           map_exact=self.map_exact)
+        if self.vertices is not None and self.vertex_map is None:
+            m.vertices = self.vertices[(slice(None, None, 2),) * self.dim]
+            m.distort = self.distort
+        return m
 
     @property
     def n_cells(self) -> int:
@@ -153,12 +174,39 @@ class StructuredMesh:
                  self.lower[d] + np.cumsum(self.axis_steps[d])])
         return self.lower[d] + self.h[d] * np.arange(self.cells[d] + 1)
 
+    def vertex_grid(self) -> np.ndarray:
+        """Vertex coordinates [*(cells + 1), dim] (before an exact
+        map)."""
+        if self.vertices is not None:
+            return self.vertices
+        axes = [self.axis_vertices(d) for d in range(self.dim)]
+        return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+
+    def _distorted_vertices(self, factor: float, seed: int) -> np.ndarray:
+        """Randomly shift interior vertices by up to factor*h_min per
+        coordinate (deal.II GridTools::distort_random semantics with
+        stfem_tpu's deterministic NumPy stream, so the vertices are
+        stfem_tpu's bit for bit)."""
+        axes = [self.lower[d] + self.h[d] * np.arange(self.cells[d] + 1)
+                for d in range(self.dim)]
+        mesh = np.meshgrid(*axes, indexing="ij")
+        verts = np.stack(mesh, axis=-1)
+        rng = np.random.default_rng(seed)
+        hmin = float(np.min(self.h))
+        shift = rng.uniform(-factor * hmin, factor * hmin, size=verts.shape)
+        # keep the boundary fixed
+        for d in range(self.dim):
+            idx = [slice(None)] * self.dim
+            idx[d] = 0
+            shift[tuple(idx)] = 0.0
+            idx[d] = -1
+            shift[tuple(idx)] = 0.0
+        return verts + shift
+
     def geometry(self, n_q_per_axis: int) -> Geometry:
         """Geometry factors at the tensor Gauss rule with n_q_per_axis
-        points per axis (a mapped mesh's are memoized per rule: its
+        points per axis, memoized per rule (a mapped or Q1 mesh's
         Jacobians are the costly part of a level's setup)."""
-        if self.vertex_map is None:
-            return self._geometry(n_q_per_axis)
         if n_q_per_axis not in self._geometry_cache:
             self._geometry_cache[n_q_per_axis] = self._geometry(n_q_per_axis)
         return self._geometry_cache[n_q_per_axis]
@@ -171,8 +219,10 @@ class StructuredMesh:
             shape = [1] * dim
             shape[d] = n_q
             w_tensor = w_tensor * qw.reshape(shape)
-        if self.vertex_map is not None:
+        if self.vertex_map is not None and self.map_exact:
             return self._geometry_exact_map(n_q, w_tensor)
+        if self.vertices is not None:
+            return self._geometry_q1(n_q, w_tensor)
         if self.axis_steps is not None:
             # non-uniform tensor grid: separable per-cell diagonal Jacobian
             detj = np.ones(self.cells)
@@ -191,6 +241,58 @@ class StructuredMesh:
                    * (w_tensor * detj))
             return Geometry(jxw=jxw, jinv_diag=1.0 / self.h)
         return Geometry(jxw=w_tensor * detj, jinv_diag=1.0 / self.h)
+
+    def _cell_corners(self) -> np.ndarray:
+        """[*cells, 2^dim, dim]: each cell's corner vertices, corner index
+        bits = per-axis 0/1 in lexicographic order."""
+        verts = self.vertex_grid()
+        corners = []
+        for bits in itertools.product((0, 1), repeat=self.dim):
+            corners.append(verts[tuple(slice(b, self.cells[d] + b)
+                                       for d, b in enumerate(bits))])
+        return np.stack(corners, axis=-2)
+
+    def _geometry_q1(self, n_q: int, w_tensor) -> Geometry:
+        """The general path (stfem_tpu/mesh/grid.py:238-286): per-cell Q1
+        maps of the corner vertices, their Jacobians, measures and inverse
+        Jacobians at every Gauss point; removed cells get an identity
+        Jacobian and zero weight."""
+        qx = shape_data_1d(1, n_q).quad_x
+        dim = self.dim
+        qshape = (n_q,) * dim
+        corner_arr = self._cell_corners()
+        n_corners = 2 ** dim
+        N = np.ones((n_corners,) + qshape)
+        dN = np.ones((n_corners,) + qshape + (dim,))
+        for ci, bits in enumerate(itertools.product((0, 1), repeat=dim)):
+            for d, b in enumerate(bits):
+                shape = [1] * dim
+                shape[d] = n_q
+                f = qx if b else (1.0 - qx)
+                df = np.ones_like(qx) if b else -np.ones_like(qx)
+                N[ci] = N[ci] * f.reshape(shape)
+                for e in range(dim):
+                    dN[ci, ..., e] = dN[ci, ..., e] * (
+                        (df if e == d else f).reshape(shape))
+        # J[*cells, Q, dx, dxi] = sum_c corner[c, dx] dN[c, Q, dxi]
+        J = np.einsum("...cx,cQe->...Qxe", corner_arr,
+                      dN.reshape(n_corners, -1, dim))
+        detJ = np.linalg.det(J)
+        if self.cell_mask is not None:
+            inactive = (self.cell_mask == 0.0).reshape(-1)
+            flatJ = J.reshape(-1, J.shape[-3], dim, dim)
+            flatJ[inactive] = np.eye(dim)
+            J = flatJ.reshape(J.shape)
+            detJ = np.linalg.det(J)
+            detJ = (detJ.reshape(self.n_cells, -1)
+                    * self.cell_mask.reshape(-1, 1)).reshape(J.shape[:-2])
+        jinv = np.linalg.inv(J)               # [..., dxi, dx]
+        jxw = (detJ * w_tensor.reshape(-1)).reshape(self.cells + qshape)
+        pts = np.einsum("...cx,cQ->...Qx", corner_arr,
+                        N.reshape(n_corners, -1))
+        return Geometry(jxw=jxw,
+                        jinv=jinv.reshape(self.cells + qshape + (dim, dim)),
+                        points=pts.reshape(self.cells + qshape + (dim,)))
 
     def _base_quad_points(self, n_q: int) -> np.ndarray:
         """Pre-map (tensor-grid) Gauss point coordinates [*cells, *q,
@@ -266,8 +368,14 @@ class StructuredMesh:
 
     def dof_coordinates(self, degree: int) -> np.ndarray:
         """Coordinates of the Q_degree nodal points, (*dofshape, dim); on
-        a mapped mesh the base nodes go through the map."""
+        an exactly mapped mesh the base nodes go through the map, on a
+        mesh with explicit vertices each node is its cell's Q1 image of
+        the reference node (deal.II's MappingQ1 node placement; a node
+        shared by cells takes the last cell's, as stfem_tpu's cell loop
+        leaves it)."""
         nodes = np.array(q_nodes_1d(degree))
+        if self.vertices is not None:
+            return self._q1_nodes(degree, nodes)
         axes = []
         for d in range(self.dim):
             v = self.axis_vertices(d)
@@ -279,11 +387,44 @@ class StructuredMesh:
             return map_points(self.vertex_map, base)
         return base
 
+    def _q1_nodes(self, degree: int, nodes: np.ndarray) -> np.ndarray:
+        """dof_coordinates on explicit vertices, vectorised over the dof
+        grid: dof j of axis d lies in cell min(j // k, cells - 1) at local
+        node j - c k; the corner weights multiply and the corner terms add
+        in stfem_tpu's order (stfem_tpu/mesh/grid.py:396-419)."""
+        k, dim = degree, self.dim
+        verts = self.vertices
+        cell, xi = [], []
+        for d in range(dim):
+            j = np.arange(self.cells[d] * k + 1)
+            c = np.minimum(j // k, self.cells[d] - 1)
+            cell.append(c)
+            xi.append(nodes[j - c * k])
+        out = np.zeros(self.dof_shape(degree) + (dim,))
+        for bits in itertools.product((0, 1), repeat=dim):
+            w = None
+            idx = []
+            for d, b in enumerate(bits):
+                shape = [1] * dim
+                shape[d] = -1
+                f = (xi[d] if b else 1 - xi[d]).reshape(shape)
+                w = f if w is None else w * f
+                idx.append((cell[d] + b).reshape(shape))
+            out = out + w[..., None] * verts[tuple(idx)]
+        return out
+
     def quad_coordinates(self, n_q: int) -> np.ndarray:
         """Physical coordinates of the tensor Gauss points, [*cells, *q,
         dim] (stfem_tpu/errors.py::quad_coordinates)."""
-        if self.vertex_map is not None:
+        if self.vertex_map is not None or self.vertices is not None:
             return self.geometry(n_q).points
+        return self.tensor_quad_coordinates(n_q)
+
+    def tensor_quad_coordinates(self, n_q: int) -> np.ndarray:
+        """The tensor Gauss points of the grid before any map or
+        distortion, [*cells, *q, dim] (stfem_tpu/errors.py::
+        quad_coordinates, which stfem_tpu's ForceAssembler evaluates the
+        rhs at on every mesh)."""
         if self.axis_steps is not None:
             return self._base_quad_points(n_q)
         qx = shape_data_1d(1, n_q).quad_x

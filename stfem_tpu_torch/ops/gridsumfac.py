@@ -49,7 +49,9 @@ def _interleave(full: np.ndarray, cells, nq: int) -> np.ndarray:
 class GridSumFac:
     """Per-axis global quadrature matmuls + full quad-grid weights for
     (w_M u, v) + (w_K grad u, grad v) with the block mixing injected at
-    the quadrature level (mix_a on the gradients, mix_b on the values)."""
+    the quadrature level (mix_a on the gradients, mix_b on the values).
+    Diagonal-Jacobian geometries only: the gradient weights fold jxw, the
+    coefficient and each cell's inverse step squared."""
 
     def __init__(self, K_op, M_op, dtype):
         dim, k, nq = K_op.dim, K_op.degree, K_op.n_q
@@ -70,10 +72,8 @@ class GridSumFac:
             self.Sg.append(as_t(Sgd))
             self.Dg.append(as_t(Dgd))
         self.Wb = as_t(_interleave(M_op.weights_np(), cells, nq))
-        wK = K_op.weights_np()
-        jinv = 1.0 / K_op.mesh.h
-        self.Wa = [as_t(_interleave(wK * jinv[e] ** 2, cells, nq))
-                   for e in range(dim)]
+        self.Wa = [as_t(_interleave(w, cells, nq))
+                   for w in K_op.stiffness_weights_np()]
 
     def apply(self, x, mix_a, mix_b, alpha_zero: bool, beta_zero: bool):
         """x: [..., *dofshape] -> same shape (None when both parts are

@@ -1,8 +1,9 @@
 """1D-assembled Kronecker-sum operator apply for tensor-product geometry
 (counterpart of stfem_tpu/ops/kronfac.py::KronAssembled).
 
-On an axis-aligned uniform mesh the global assembled operators factorize
-exactly:
+On an axis-aligned tensor mesh (uniform or with per-axis steps) without a
+coefficient field, cell mask, map or distortion the global assembled
+operators factorize exactly:
     M_glob = M_1 (x) ... (x) M_dim
     K_glob = sum_e  M_1 (x) ... (x) A_e (x) ... (x) M_dim
 with 1D assembled mass/stiffness matrices M_d, A_d (bandwidth 2k+1) built
@@ -56,14 +57,25 @@ def assemble_1d_dense(op1) -> np.ndarray:
     return A
 
 
-def one_d_operators(mesh, d: int, k: int, n_q: int):
-    """The unconstrained f64 1D mass and stiffness operators of axis d."""
+def axis_mesh(mesh, d: int):
+    """The 1D mesh of axis d: uniform when the steps are equal, else with
+    the axis' steps (stfem_tpu/ops/kronfac.py:130-138)."""
     from ..mesh.grid import StructuredMesh
-    from .spatial import LaplaceMassOperator
 
     verts = mesh.axis_vertices(d)
-    mesh1 = StructuredMesh([int(mesh.cells[d])], [float(verts[0])],
-                           [float(verts[-1])], refinement=0)
+    steps = np.diff(verts)
+    if np.allclose(steps, steps[0]):
+        return StructuredMesh([int(mesh.cells[d])], [float(verts[0])],
+                              [float(verts[-1])], refinement=0)
+    return StructuredMesh([len(steps)], [float(verts[0])], None,
+                          refinement=0, axis_steps=[steps])
+
+
+def one_d_operators(mesh, d: int, k: int, n_q: int):
+    """The unconstrained f64 1D mass and stiffness operators of axis d."""
+    from .spatial import LaplaceMassOperator
+
+    mesh1 = axis_mesh(mesh, d)
     free = np.ones(int(mesh.cells[d]) * k + 1)
     M1 = LaplaceMassOperator(mesh1, k, n_q, 1.0, 0.0, dtype=torch.float64,
                              device="cpu", mask=free)
@@ -77,9 +89,13 @@ class KronAssembled:
 
     @staticmethod
     def supports(K_op, M_op) -> bool:
-        """True when the operators separate per axis: no coefficient field
-        (the port's meshes are uniform and unmasked)."""
-        return K_op.coeff is None and M_op.coeff is None
+        """True when the geometry separates (stfem_tpu/ops/kronfac.py:
+        100-107): diagonal Jacobians, no coefficient field, no cell mask,
+        no explicit (distorted or Q1-mapped) vertices."""
+        mesh = K_op.mesh
+        return (K_op.jinv is None and K_op.coeff is None
+                and M_op.coeff is None and mesh.cell_mask is None
+                and mesh.vertices is None)
 
     def __init__(self, K_op, M_op, dtype):
         assert self.supports(K_op, M_op)

@@ -24,7 +24,8 @@ from ..mesh.fe import shape_data_1d
 from ..mesh.grid import StructuredMesh
 
 __all__ = ["LaplaceMassOperator", "basis_tensors", "cell_gather",
-           "cell_scatter", "geometry_factors", "overlap_add"]
+           "cell_scatter", "geometry_factors", "inverse_steps",
+           "layer_sum", "overlap_add"]
 
 
 def _axis_letters(dim):
@@ -88,6 +89,20 @@ def overlap_add(y: torch.Tensor, src: torch.Tensor, dim: int):
     return out
 
 
+def layer_sum(parts, table: torch.Tensor):
+    """Owner-computes sum over cell layers: parts are per-layer tensors
+    [C_l, ...], table utils/assembly.py::layer_sources's; the result holds
+    each listed cell's contributions added one after the other in layer
+    order (a gather and n_max - 1 adds, no scatter-add)."""
+    cat = torch.cat(list(parts) + [parts[0].new_zeros((1,)
+                                                      + parts[0].shape[1:])])
+    g = cat[table]
+    acc = g[:, 0]
+    for i in range(1, g.shape[1]):
+        acc = acc + g[:, i]
+    return acc
+
+
 def _sumfac(mats, x, dim, forward=True):
     """Apply 1D matrices along the last `dim` axes.  forward: x[..., a1..ad]
     -> [..., q1..qd] with mats[d] of shape (q, a); else the transpose."""
@@ -100,25 +115,34 @@ def _sumfac(mats, x, dim, forward=True):
     return torch.einsum(ein, *operands, x)
 
 
+def inverse_steps(geom, cells):
+    """The float64 inverse step along each axis e of a diagonal-Jacobian
+    Geometry: a 0-d array (uniform, also masked) or [1.., cells[e], ..1]
+    broadcastable against [*cells, *q] (axis steps); None for a mapped or
+    Q1 geometry (full inverse Jacobians)."""
+    dim = len(cells)
+    if geom.jinv is not None:
+        return None
+    if geom.jinv_axis is not None:
+        out = []
+        for e in range(dim):
+            shape = [1] * (2 * dim)
+            shape[e] = cells[e]
+            out.append(np.asarray(geom.jinv_axis[e],
+                                  np.float64).reshape(shape))
+        return out
+    return [np.asarray(geom.jinv_diag[e], np.float64) for e in range(dim)]
+
+
 def geometry_factors(geom, cells, dtype, device):
     """(jfac, jinv) of a Geometry as tensors: jfac[e] the inverse step
-    along axis e -- a 0-d tensor (uniform) or [1.., cells[e], ..1] over
-    [*cells, *q] (axis steps) -- and None, or None and the inverse
-    Jacobians [*cells, *q, dim, dim] (mapped)."""
-    dim = len(cells)
+    along axis e (inverse_steps) and None, or None and the inverse
+    Jacobians [*cells, *q, dim, dim] (mapped or Q1)."""
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                      device=device)
     if geom.jinv is not None:
         return None, as_t(geom.jinv)
-    if geom.jinv_axis is not None:
-        jfac = []
-        for e in range(dim):
-            shape = [1] * (2 * dim)
-            shape[e] = cells[e]
-            jfac.append(as_t(geom.jinv_axis[e]).reshape(shape))
-        return jfac, None
-    jinv = as_t(geom.jinv_diag)
-    return [jinv[e] for e in range(dim)], None
+    return [as_t(j) for j in inverse_steps(geom, cells)], None
 
 
 def basis_tensors(dim: int, k: int, nq: int):
@@ -200,6 +224,16 @@ class LaplaceMassOperator:
         if self.coeff_np is not None:
             w = w * self.coeff_np
         return np.broadcast_to(w, tuple(self.cells) + (self.n_q,) * self.dim)
+
+    def stiffness_weights_np(self) -> list[np.ndarray]:
+        """Per direction e, weights_np() times the square of the inverse
+        step along e, cell by cell (stfem_tpu's w * jfac[e]^2), float64
+        [*cells, *q]; diagonal-Jacobian geometries only."""
+        steps = inverse_steps(self.geom, self.cells)
+        if steps is None:
+            raise ValueError("full inverse Jacobians: no per-axis weights")
+        w = self.weights_np()
+        return [w * j ** 2 for j in steps]
 
     def apply(self, x: torch.Tensor, mask_input: bool = True):
         """y = mask . A (mask . x); x has shape [..., *dofshape].

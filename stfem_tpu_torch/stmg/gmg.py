@@ -342,7 +342,11 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
     give the benches' ladder (space_and_time, p-multigrid, one tau
     level).  laplace_coefficient multiplies every level's stiffness
     operator; such levels take the GridSumFac route and the cell-local
-    Vanka, and their eigenvalues are estimated on the level itself.
+    Vanka, and their eigenvalues are estimated on the level itself.  On a
+    distorted fine mesh every coarser mesh is coarsened() from it (strided
+    vertices): each level takes SystemMatrix's "cell" route and the
+    cell-local Vanka, and its eigenvalues are estimated on the level
+    itself too.
     Everything lives on `device`; the estimates sweep there."""
     params = params or GMGParams()
     if params.level_bf16:
@@ -355,9 +359,16 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
         n_timesteps_at_once_min = max(n_timesteps_at_once // 2, 1)
 
     n_sp_lvl = mesh_fine.refinement + 1
-    meshes = [StructuredMesh(mesh_fine.subdivisions, mesh_fine.lower,
-                             mesh_fine.upper, refinement=r)
-              for r in range(n_sp_lvl)]
+    if mesh_fine.distort != 0.0:
+        # the coarse meshes inherit the fine mesh's distorted vertices,
+        # strided (stfem_tpu/stmg/gmg.py:441-445)
+        meshes = [mesh_fine]
+        while meshes[0].refinement > 0:
+            meshes.insert(0, meshes[0].coarsened())
+    else:
+        meshes = [StructuredMesh(mesh_fine.subdivisions, mesh_fine.lower,
+                                 mesh_fine.upper, refinement=r)
+                  for r in range(n_sp_lvl)]
     poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min,
                                      poly_coarsening)
     poly_space = get_poly_mg_sequence(space_degree, 1, poly_coarsening)
@@ -420,7 +431,7 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
         when the level is a large coefficient-free one."""
         m_est, v_est, mask = matrix, v, K.mask_np
         p = params.eig_proxy_cells
-        if (p > 0 and laplace_coefficient is None
+        if (p > 0 and laplace_coefficient is None and mesh_l.uniform
                 and all(int(c) > p for c in mesh_l.cells)):
             pm = StructuredMesh([p] * mesh_l.dim, [0.0] * mesh_l.dim,
                                 [p * float(h) for h in mesh_l.h])

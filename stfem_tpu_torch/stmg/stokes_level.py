@@ -19,26 +19,48 @@ import torch
 
 from ..blocks import BlockSlice
 from ..mesh.fe_dgp import dgp_child_embedding, dgp_p_embedding
-from ..ops.spatial import LaplaceMassOperator, cell_gather, overlap_add
+from ..ops.spatial import (LaplaceMassOperator, cell_gather, layer_sum,
+                           overlap_add)
 from ..ops.stokes import StokesOperator
-from ..utils.assembly import band_indices, dof_valence
+from ..utils.assembly import (band_columns, band_indices, dof_valence,
+                              layer_sources, overlap_sources)
 from .transfers import SpaceTransfer
 
 
-def _band_flat(op: LaplaceMassOperator, flat_idx: torch.Tensor,
+def _band_flat(op: LaplaceMassOperator,
                extra_E: torch.Tensor | None = None):
     """Flattened banded assembled matrix band[*dofshape, (2k+1)^dim] =
     A[g, g + offset], unit diagonal on constrained dofs
-    (stfem_tpu/stmg/vanka.py::_band_flat).  extra_E: per-cell additions
-    (C, A, A), the Nitsche face terms of the boundary-layer cells."""
-    k, dim = op.degree, op.dim
+    (stfem_tpu/stmg/vanka.py::_band_flat; index it with band_indices to
+    extract patches).  extra_E: per-cell additions (C, A, A), the Nitsche
+    face terms of the boundary-layer cells.  Owner-computes: each offset's
+    column gathers every cell's entry of that offset into a cell-local
+    array, and each dof adds its (at most 2^dim) cells' entries one after
+    the other in cell order, as a sequential scatter-add would, a chunk of
+    offsets at a time."""
+    k, dim, cells = op.degree, op.dim, op.cells
     E = op.element_matrices()        # (C, A, A), constrained rows/cols 0
     if extra_E is not None:
         E = E + extra_E
+    C, A = E.shape[0], E.shape[1]
     n_off = (2 * k + 1) ** dim
-    band = torch.zeros(int(np.prod(op.dof_shape)) * n_off, dtype=op.dtype,
-                       device=op.device)
-    band.index_add_(0, flat_idx.reshape(-1), E.reshape(-1))
+    dev = op.device
+    sel = torch.as_tensor(band_columns(k, dim), device=dev)   # (A, n_off)
+    src = torch.as_tensor(overlap_sources(cells, k).reshape(-1), device=dev)
+    Epad = torch.nn.functional.pad(E, (0, 1))                 # b = A: zero
+    rows = torch.arange(A, device=dev)[:, None]
+    band = torch.empty((int(np.prod(op.dof_shape)), n_off), dtype=op.dtype,
+                       device=dev)
+    step = max(1, 2 ** 25 // (C * A))
+    for o in range(0, n_off, step):
+        loc = Epad[:, rows, sel[:, o:o + step]]          # (C, A, chunk)
+        loc = torch.nn.functional.pad(
+            loc.permute(2, 0, 1).reshape(-1, C * A), (0, 1))
+        g = loc.index_select(-1, src).reshape(loc.shape[0], -1, 2 ** dim)
+        acc = g[..., 0]
+        for i in range(1, 2 ** dim):       # the sources in cell order
+            acc = acc + g[..., i]
+        band[:, o:o + step] = acc.T
     band = band.reshape(op.dof_shape + (n_off,))
     band[..., (n_off - 1) // 2] += 1.0 - op.mask
     return band.reshape(-1)
@@ -120,27 +142,34 @@ class StokesVanka:
         _, E_up, E_pu = S.element_matrices()
         E_up, E_pu = E_up.to(dtype), E_pu.to(dtype)
         if S.weak_faces:
-            face_uu = [torch.zeros((C, A_s, A_s), dtype=dtype, device=dev)
-                       for _ in range(dim)]
-            face_up = torch.zeros_like(E_up)
-            face_pu = torch.zeros_like(E_pu)
+            faces = S.face_element_matrices()
             cell_grid = np.arange(C).reshape(cells)
-            for d0, side, Fuu, Fup, Fpu in S.face_element_matrices():
-                layer = torch.as_tensor(
-                    cell_grid[S._plane(d0, side)].reshape(-1), device=dev)
-                for c in range(dim):
-                    face_uu[c].index_add_(0, layer, Fuu[c].to(dtype))
-                face_up.index_add_(0, layer, Fup.to(dtype))
-                face_pu.index_add_(0, layer, Fpu.to(dtype))
-            E_up, E_pu = E_up + face_up, E_pu + face_pu
-        Muu_s = _band_flat(mass, fidx)[fidx]
+            fc, table = layer_sources([cell_grid[S._plane(d0, side)]
+                                       for d0, side, *_ in faces])
+            fc = torch.as_tensor(fc, device=dev)
+            table = torch.as_tensor(table, device=dev)
+
+            def on_layers(base, parts):
+                """base plus the per-layer parts summed over the layers
+                (owner-computes, utils/assembly.py::layer_sources)."""
+                out = base.clone()
+                out[fc] = out[fc] + layer_sum([p.to(dtype) for p in parts],
+                                              table)
+                return out
+
+            zero = torch.zeros((C, A_s, A_s), dtype=dtype, device=dev)
+            face_uu = [on_layers(zero, [f[2][c] for f in faces])
+                       for c in range(dim)]
+            E_up = on_layers(E_up, [f[3] for f in faces])
+            E_pu = on_layers(E_pu, [f[4] for f in faces])
+        Muu_s = _band_flat(mass)[fidx]
         # block-diagonal over the components, rows/cols component-major
         Kuu = torch.zeros((C, dim, A_s, dim, A_s), dtype=dtype, device=dev)
         Muu = torch.zeros_like(Kuu)
-        Kuu_s = None if S.weak_faces else _band_flat(lap, fidx)[fidx]
+        Kuu_s = None if S.weak_faces else _band_flat(lap)[fidx]
         for c in range(dim):
             Kuu[:, c, :, c, :] = (Kuu_s if Kuu_s is not None else
-                                  _band_flat(lap, fidx, face_uu[c])[fidx])
+                                  _band_flat(lap, face_uu[c])[fidx])
             Muu[:, c, :, c, :] = Muu_s
         Kuu, Muu = Kuu.reshape(C, A_u, A_u), Muu.reshape(C, A_u, A_u)
 

@@ -1,12 +1,14 @@
 """Cell-wise Vanka patch smoother by fast diagonalisation (counterpart of
 stfem_tpu/stmg/vanka.py::PreconditionVanka, mode "fastdiag"): the grid
 mode for separable levels (STFEM_GRID_VANKA on, stfem_tpu's default) and
-the cell-local mode for levels with a coefficient field.
+the cell-local mode for levels with a coefficient field, a cell mask or a
+distorted, mapped or Q1 geometry.
 
 The space-time patch matrix B_c = Alpha (x) K_loc_c + Beta (x) M_loc_c,
 row-scaled by dof valence (reference include/stmg.h:619-907), is inverted
-by fast diagonalisation: on a uniform tensor mesh every patch inherits the
-per-axis generalized eigenbases V_d of the 1D patch matrices, so
+by fast diagonalisation: on a tensor mesh (uniform or stepped) every patch
+inherits the per-axis generalized eigenbases V_d of the 1D patch
+matrices, so
     B_c^{-1} = (I (x) V) [per eigenvalue (lam Alpha + Beta)^{-1}] (I (x) V^T).
 The apply is "grid" form: the gather, the valence scaling and V_d^T fold
 into one banded matrix per axis (Wdn), the per-position time solve runs on
@@ -18,10 +20,11 @@ matrices run as kernel K4 (ops/grid_chain.py), always: stfem_tpu's
 STFEM_PALLAS_GRID=1 path, whose rotated factor order (factor_perm) is not
 carried over.
 
-When a coefficient field breaks the separability (separable() below),
-each cell's patch gets its own eigenbasis: the assembled patch matrices
-(band assembly -> patch extraction) are whitened by the Cholesky factor
-of M_loc and diagonalised by one batched eigh, giving a dense V (C, A, A)
+When the geometry or a coefficient field breaks the separability
+(separable() below), each cell's patch gets its own eigenbasis: the
+assembled patch matrices (band assembly -> patch extraction) are whitened
+by the Cholesky factor of M_loc and diagonalised by one batched eigh,
+giving a dense V (C, A, A)
 with V^T M_loc V = I, V^T K_loc V = diag(lam).  The apply is gather ->
 valence scaling -> V^T -> the per-position time solve on the flat N = C A
 axis (kernel K1 for multi-step slabs, as in grid mode) -> V -> scatter.
@@ -36,20 +39,27 @@ import torch
 
 from ..ops.grid_chain import chain_down, chain_up, check_cell_blocks
 from ..ops.gridsumfac import promote
-from ..ops.kronfac import assemble_1d_dense
-from ..ops.spatial import LaplaceMassOperator, cell_gather, cell_scatter
+from ..ops.kronfac import assemble_1d_dense, axis_mesh
+from ..ops.spatial import LaplaceMassOperator, cell_gather, overlap_add
 from ..ops.time_solve import time_solve
-from ..utils.assembly import band_indices, dof_valence
+from ..utils.assembly import (band_indices, cell_dof_indices, dof_valence,
+                              overlap_sources)
 from .stokes_level import _band_flat
 
 
 def separable(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator) -> bool:
-    """True when the patch eigenbasis factorizes per axis: no coefficient
-    field and the default Dirichlet masks (stfem_tpu's
-    separable_eigenbasis returns None otherwise)."""
-    default = K_op.mesh.boundary_dof_mask(K_op.degree)
-    return (K_op.coeff is None and M_op.coeff is None
-            and np.array_equal(K_op.mask_np, default)
+    """True when the patch eigenbasis factorizes per axis: diagonal
+    Jacobians, no coefficient field, cell mask or explicit (distorted or
+    Q1-mapped) vertices, and the default Dirichlet masks (stfem_tpu's
+    separable_eigenbasis returns None otherwise, stfem_tpu/stmg/
+    vanka.py:119-128)."""
+    mesh = K_op.mesh
+    if (K_op.jinv is not None or K_op.coeff is not None
+            or M_op.coeff is not None or mesh.cell_mask is not None
+            or mesh.vertices is not None):
+        return False
+    default = mesh.boundary_dof_mask(K_op.degree)
+    return (np.array_equal(K_op.mask_np, default)
             and np.array_equal(M_op.mask_np, default))
 
 
@@ -65,7 +75,7 @@ def cell_eigenbasis(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator):
                                  coefficient=op.coefficient)
              for op in (K_op, M_op)]
     fidx = torch.as_tensor(band_indices(K_op.cells, K_op.degree))
-    Kp, Mp = (_band_flat(op, fidx)[fidx] for op in twins)    # (C, A, A)
+    Kp, Mp = (_band_flat(op)[fidx] for op in twins)          # (C, A, A)
     L = torch.linalg.cholesky(Mp)
     eye = torch.eye(Mp.shape[-1], dtype=f64).expand_as(Mp)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
@@ -84,18 +94,16 @@ def separable_eigenbasis(K_op: LaplaceMassOperator,
     V^T K V = diag(lam); constrained dofs get unit vectors with the
     placeholder eigenvalue 1/dim (they only ever see a zero residual).
 
+    Each axis' 1D mesh carries its steps (ops/kronfac.py::axis_mesh).
     Returns (lam [C, A] float64, V_axes list of [cells_d, k+1, k+1])."""
     import scipy.linalg
-
-    from ..mesh.grid import StructuredMesh
 
     mesh = K_op.mesh
     k, dim = K_op.degree, K_op.dim
     lam_axes, v_axes = [], []
     for d in range(dim):
-        verts = mesh.axis_vertices(d)
         nc = int(mesh.cells[d])
-        mesh1 = StructuredMesh([nc], [float(verts[0])], [float(verts[-1])])
+        mesh1 = axis_mesh(mesh, d)
         mask1 = mesh1.boundary_dof_mask(k)
         patches = []
         for ms, ls in ((0.0, 1.0), (1.0, 0.0)):
@@ -174,6 +182,7 @@ class PreconditionVanka:
                 self.n_steps = n_steps
 
         self.mode = "grid" if separable(K_op, M_op) else "cell"
+        self._idx = self._src = None    # the cell mode's index maps
         if self.mode == "cell":
             self._build_cell(eigenbasis or cell_eigenbasis(K_op, M_op),
                              Alpha, Beta, storage_dtype)
@@ -268,9 +277,14 @@ class PreconditionVanka:
                                               ).contiguous()
 
     def _vmult_cell(self, src: torch.Tensor) -> torch.Tensor:
-        nb, cells, k = src.shape[0], self.cells, self.k
+        nb = src.shape[0]
         C, A = self.V.shape[0], self.V.shape[1]
-        r = cell_gather(src.to(self.dtype), cells, k).reshape(nb, C, A)
+        if self._idx is None:           # one index_select each way
+            ix = lambda a: torch.as_tensor(a.reshape(-1), device=self.device)
+            self._idx = ix(cell_dof_indices(self.cells, self.k))
+            self._src = ix(overlap_sources(self.cells, self.k))
+        r = src.to(self.dtype).reshape(nb, -1).index_select(
+            -1, self._idx).reshape(nb, C, A)
         V, r = promote(self.V, r * self.dinv)
         w = torch.einsum("caq,tca->tcq", V, r).reshape(nb, C * A)
         if self.n_steps > 1:
@@ -282,8 +296,8 @@ class PreconditionVanka:
             w = torch.einsum("tsn,sn->tn", TTg, w)
         V, w = promote(self.V, w.reshape(nb, C, A))
         y = torch.einsum("caq,tcq->tca", V, w).to(self.dtype)
-        return cell_scatter(y.reshape((nb,) + tuple(cells) + (k + 1,)
-                                      * self.dim), cells, k)
+        return overlap_add(y.reshape(nb, C * A), self._src,
+                           self.dim).reshape(src.shape)
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
         """src: [n_blocks, *dofshape] residual -> additive patch updates."""

@@ -1,19 +1,33 @@
 """Space-time slab system operator (Alpha (x) K + Beta (x) M) x
 (counterpart of stfem_tpu/system.py::SystemMatrix).
 
-The block vector is one dense tensor [n_blocks, *dofshape].  Three routes,
+The block vector is one dense tensor [n_blocks, *dofshape].  Four routes,
 chosen in stfem_tpu's order (the order it ran on its accelerator):
-  "kron"  when the geometry separates (KronAssembled.supports: no
-          coefficient): one Kronecker pair (K x, M x) over the whole batch,
-          then the small Alpha/Beta mixing matrices over the block axis;
+  "kron"  when the geometry separates (KronAssembled.supports: diagonal
+          Jacobians, no coefficient, cell mask or explicit vertices): one
+          Kronecker pair (K x, M x) over the whole batch, then the small
+          Alpha/Beta mixing matrices over the block axis;
+  "cell"  when the mesh has full inverse Jacobians (distorted, Q1-mapped
+          or exactly mapped; stfem_tpu/system.py:323-348): one gather of
+          every cell's dofs, the Alpha/Beta premix over the block axis,
+          the values and reference gradients at the quadrature points by
+          one full-cell-basis product each, the mass weights and the
+          per-point metric w J^-1 J^-T, the transposed products, and the
+          overlap-add -- plain torch ops, as stfem_tpu leaves this route
+          to XLA (it sum-factorises; the full-cell basis takes ~10 launches
+          an apply where sum factorisation takes ~150, and the V-cycle on
+          a distorted mesh is bound by launches);
   "quad"  otherwise for a float64 operator (stfem_tpu's route 3, which its
           emulated-FP64 operators took): cell_gather, the Alpha/Beta premix
           as one dense matmul over the block axis, the full-cell-basis
           quadrature middle (kernel K5, ops/quad_middle.py), cell_scatter;
   "grid"  otherwise (float32/bf16 levels): ops/gridsumfac.py's per-axis
           global matmuls with the mixing at the quadrature level.
-A route may also be asked for by name (the tests; chip_smoke.py's
-independent FP64 residual check).
+"quad" and "grid" weight each direction by the cell's inverse step
+squared, so stepped and masked meshes take them as they are.  A route may
+also be asked for by name (the tests; chip_smoke.py's independent FP64
+residual check); "kron", "quad" and "grid" raise on full inverse
+Jacobians.
 """
 from __future__ import annotations
 
@@ -24,10 +38,11 @@ from .ops.gridsumfac import GridSumFac, promote
 from .ops.kronfac import KronAssembled
 from .ops.quad_middle import quad_middle
 from .ops.spatial import (LaplaceMassOperator, basis_tensors, cell_gather,
-                          cell_scatter)
+                          cell_scatter, overlap_add)
+from .utils.assembly import cell_dof_indices, overlap_sources
 from .utils.precision import full_precision
 
-ROUTES = ("kron", "quad", "grid")
+ROUTES = ("kron", "cell", "quad", "grid")
 
 
 class SystemMatrix:
@@ -72,33 +87,62 @@ class SystemMatrix:
 
         if route is None:
             route = ("kron" if KronAssembled.supports(K_op, M_op)
+                     else "cell" if K_op.jinv is not None
                      else "quad" if self.dtype == torch.float64 else "grid")
         if route not in ROUTES:
             raise ValueError(f"SystemMatrix: unknown route {route!r}")
+        if route != "cell" and K_op.jinv is not None:
+            raise ValueError(f"SystemMatrix: route {route!r} takes "
+                             "diagonal Jacobians only")
         self.route = route
         self._kron = self._grid = None
         if route == "kron":
             self._kron = KronAssembled(K_op, M_op, self.dtype)
         elif route == "grid":
             self._grid = GridSumFac(K_op, M_op, self.dtype)
-        else:
+        elif route == "quad":
             self._phig, self._phigT, self._w = self._quad_tables(K_op, M_op)
+        else:
+            self._cell_tables(K_op, M_op)
 
     def _quad_tables(self, K_op, M_op):
         """Route "quad"'s PhiG (A, (1+dim)Q), its transpose, and W (C,
         (1+dim)Q): the mass weights, then the stiffness weights with each
-        direction's inverse-Jacobian square (stfem_tpu system.py:137-157)."""
+        direction's per-cell inverse step squared (stfem_tpu
+        system.py:137-157)."""
         dim, C = K_op.dim, K_op.mesh.n_cells
         Q = K_op.n_q ** dim
         Phi, Grad = basis_tensors(K_op.dim, K_op.degree, K_op.n_q)
         PhiG = np.concatenate([Phi] + [Grad[e] for e in range(dim)], axis=1)
-        wK = K_op.weights_np().reshape(C, Q)
-        jinv = 1.0 / K_op.mesh.h
         W = np.concatenate([M_op.weights_np().reshape(C, Q)]
-                           + [wK * jinv[e] ** 2 for e in range(dim)], axis=1)
+                           + [w.reshape(C, Q)
+                              for w in K_op.stiffness_weights_np()], axis=1)
         as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                          dtype=self.dtype, device=self.device)
         return as_t(PhiG), as_t(PhiG.T), as_t(W)
+
+    def _cell_tables(self, K_op, M_op):
+        """Route "cell"'s tables: the full-cell basis values Phi (A, Q) and
+        reference gradients Grad (A, dim Q) with their transposes, the
+        mass weights wM (C, Q), the metric G (C, dim, dim, Q) = w J^-1
+        J^-T per quadrature point (stiffness weights w), and the gather
+        and overlap-add index maps."""
+        dim, k, C = K_op.dim, K_op.degree, K_op.mesh.n_cells
+        Q = K_op.n_q ** dim
+        Phi, Grad = basis_tensors(dim, k, K_op.n_q)
+        GradCat = np.concatenate(list(Grad), axis=1)
+        ji = np.asarray(K_op.geom.jinv, np.float64).reshape(C, Q, dim, dim)
+        wK = K_op.weights_np().reshape(C, Q)
+        G = np.einsum("cqed,cqfd->cefq", ji, ji) * wK[:, None, None, :]
+        as_t = lambda a: torch.as_tensor(np.array(a, np.float64),
+                                         dtype=self.dtype, device=self.device)
+        self._phi, self._phiT = as_t(Phi), as_t(Phi.T)
+        self._grad, self._gradT = as_t(GradCat), as_t(GradCat.T)
+        self._wM = as_t(M_op.weights_np().reshape(C, Q))
+        self._G = as_t(G)
+        ix = lambda a: torch.as_tensor(a.reshape(-1), device=self.device)
+        self._idx = ix(cell_dof_indices(K_op.cells, k))
+        self._src = ix(overlap_sources(K_op.cells, k))
 
     @staticmethod
     def _detect_step_structure(Anp, Bnp):
@@ -157,6 +201,8 @@ class SystemMatrix:
             return self._zeros(x) if y is None else y * self.K.mask
         if self.route == "quad":
             return self._apply_quad(x)
+        if self.route == "cell":
+            return self._apply_cell(x)
         K, M = self.K, self.M
         xin = x * K.mask
         cKK, cKM = K.laplace_scaling, K.mass_scaling
@@ -192,6 +238,32 @@ class SystemMatrix:
     def _zeros(self, x):
         return torch.zeros((self.n_blocks,) + x.shape[1:], dtype=self.dtype,
                            device=self.device)
+
+    def _apply_cell(self, x):
+        """Route "cell": stiffness K_op (laplace 1, mass 0) and mass M_op
+        (1, 0) with their weights (jxw times the coefficient); x: [n_src,
+        ..., *dofshape]."""
+        K = self.K
+        dim = K.dim
+        lead = x.shape[:x.ndim - dim]
+        C, A = self._wM.shape[0], self._phi.shape[0]
+        u = (x * K.mask).reshape(lead + (-1,)).index_select(
+            -1, self._idx).reshape(lead + (C, A))
+        acc = None
+        if not self.beta_is_zero:
+            ub, phi = promote(self._mix(self.Beta, u), self._phi)
+            acc = ((ub @ phi) * self._wM) @ self._phiT
+        if not self.alpha_is_zero:
+            ua, grad = promote(self._mix(self.Alpha, u), self._grad)
+            g = ua @ grad                                  # [..., C, dim Q]
+            g = g.reshape(g.shape[:-1] + (dim, -1))        # [..., C, f, Q]
+            t = (self._G * g.unsqueeze(-3)).sum(-2)        # [..., C, e, Q]
+            t = t.reshape(t.shape[:-2] + (-1,)) @ self._gradT
+            acc = t if acc is None else acc + t
+        if acc is None:
+            return self._zeros(x)
+        y = overlap_add(acc.reshape(acc.shape[:-2] + (-1,)), self._src, dim)
+        return y.reshape(acc.shape[:-2] + tuple(K.dof_shape)) * K.mask
 
     def _apply_quad(self, x):
         """cell_gather -> premix -> K5 -> cell_scatter -> mask."""

@@ -14,9 +14,10 @@ import numpy as np
 import torch
 
 from .mesh.grid import StructuredMesh
-from .ops.spatial import LaplaceMassOperator, overlap_add
+from .ops.spatial import LaplaceMassOperator, layer_sum, overlap_add
 from .ops.stokes import StokesOperator
 from .types import TimeStepType
+from .utils.assembly import layer_sources
 from .utils.precision import full_precision
 
 
@@ -32,7 +33,8 @@ class StokesSystemMatrix:
     one matmul with the cell's element matrices (the Stokes and velocity
     mass matrices side by side: one pair for a uniform mesh, one per cell
     otherwise, a batched matmul), the time mixing,
-    the Nitsche face cells' own matrices, and the overlap-add back (in
+    the Nitsche face cells' own matrices (each face cell's summed over its
+    faces at setup), and the overlap-add back (in
     cell_scatter's order): the same operator to rounding, in ~15 launches
     where the sum-factorised applies take ~230 (~380 with Nitsche faces),
     for the host-bound V-cycle's level operators."""
@@ -107,8 +109,10 @@ class StokesSystemMatrix:
                            torch.ones(S.n_p, dtype=self.dtype,
                                       device=self.device)])
         self._mloc = mflat[self._lidx].reshape(lidx.shape)      # [C, P]
-        # Nitsche faces: (layer cells, [C_l, P, P] face element matrices)
-        self._faces = []
+        # Nitsche faces: every face cell's [P, P] face matrix, summed over
+        # the layers it lies in (a corner cell lies in two) once, here, by
+        # an owner-computes sum (utils/assembly.py::layer_sources)
+        parts, layers = [], []
         cell_grid = np.arange(lidx.shape[0]).reshape(S.cells)
         for d0, side, Fuu, Fup, Fpu in S.face_element_matrices():
             F = torch.zeros((Fup.shape[0], P, P), dtype=self.dtype,
@@ -117,9 +121,14 @@ class StokesSystemMatrix:
                 F[:, c * A:(c + 1) * A, c * A:(c + 1) * A] = Fuu[c]
             F[:, :dim * A, dim * A:] = Fup
             F[:, dim * A:, :dim * A] = Fpu
-            layer = cell_grid[S._plane(d0, side)].reshape(-1)
-            self._faces.append((torch.as_tensor(layer, device=self.device),
-                                F))
+            parts.append(F)
+            layers.append(cell_grid[S._plane(d0, side)].reshape(-1))
+        self._face_cells = self._face_F = None
+        if parts:
+            fc, table = layer_sources(layers)
+            self._face_cells = torch.as_tensor(fc, device=self.device)
+            self._face_F = layer_sum(parts, torch.as_tensor(
+                table, device=self.device))                # [n_fc, P, P]
 
     def _vmult_element(self, x):
         T, C, P = x.shape[0], self._mloc.shape[0], self._mloc.shape[1]
@@ -132,9 +141,13 @@ class StokesSystemMatrix:
             y = y.reshape((C,) + loc.shape[:2] + (2 * P,)).movedim(0, 2)
         out = (self.a @ y[..., :P].reshape(T, -1)
                + self.b @ y[..., P:].reshape(T, -1)).reshape(loc.shape)
-        for layer, F in self._faces:
-            yf = (F @ loc.index_select(2, layer).unsqueeze(-1)).squeeze(-1)
-            out.index_add_(2, layer, (self.a @ yf.reshape(T, -1)).reshape(
+        if self._face_F is not None:
+            fc = self._face_cells
+            yf = (self._face_F @ loc.index_select(2, fc).unsqueeze(-1)
+                  ).squeeze(-1)
+            # fc holds each face cell once (summed at setup): one add per
+            # target, so the result does not depend on the atomics' order
+            out.index_add_(2, fc, (self.a @ yf.reshape(T, -1)).reshape(
                 yf.shape))
         out = (out * self._mloc).reshape(T, -1, C * P)
         return overlap_add(out, self._src, self.S.dim).reshape(x.shape)

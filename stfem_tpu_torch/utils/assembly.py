@@ -1,6 +1,9 @@
 """Index maps for banded assembly and Vanka patches (the NumPy forms of
 stfem_tpu/utils/native.py::band_indices and ::dof_valence; the port keeps
-its own copy and binds no native library)."""
+its own copy and binds no native library), and the tables of the
+owner-computes sums that replace scatter-adds: each target gathers its
+contributions through a padded index table in a fixed order and reduces
+them, so no float atomics make a result vary from run to run."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,6 +30,44 @@ def band_indices(cells, degree: int) -> np.ndarray:
     off_strides = np.cumprod([1] + [2 * k + 1] * (dim - 1))[::-1]
     off_flat = (off * off_strides[None, None, :]).sum(-1)
     return (gidx[:, :, None] * n_off + off_flat[None, :, :]).astype(np.int64)
+
+
+def band_columns(degree: int, dim: int) -> np.ndarray:
+    """(A, (2k+1)^dim) int64: for local row a and band offset o, the local
+    column b with band_indices' offset of (a, b) equal to o, or A where no
+    column of the cell has it."""
+    k = degree
+    A = (k + 1) ** dim
+    n_off = (2 * k + 1) ** dim
+    loc = np.stack(np.meshgrid(*([np.arange(k + 1)] * dim), indexing="ij"),
+                   -1).reshape(A, dim)
+    off = loc[None, :, :] - loc[:, None, :] + k
+    off_strides = np.cumprod([1] + [2 * k + 1] * (dim - 1))[::-1]
+    off_flat = (off * off_strides[None, None, :]).sum(-1)     # (a, b)
+    out = np.full((A, n_off), A, np.int64)
+    rows = np.repeat(np.arange(A), A)
+    out[rows, off_flat.reshape(-1)] = np.tile(np.arange(A), A)
+    return out
+
+
+def layer_sources(layers) -> tuple[np.ndarray, np.ndarray]:
+    """Owner-computes table of a sum over cell layers (the Nitsche face
+    layers: a corner cell lies in two).  layers: a list of int arrays of
+    cell indices, each without repeats.  Returns (cells, table): the
+    sorted cells that some layer holds, and for each its rows in the
+    concatenation of the layers, in layer order, padded with the total row
+    count (a zero row the caller appends)."""
+    layers = [np.asarray(l, np.int64).reshape(-1) for l in layers]
+    cat = np.concatenate(layers) if layers else np.zeros(0, np.int64)
+    cells, counts = np.unique(cat, return_counts=True)
+    n_max = int(counts.max()) if len(counts) else 0
+    table = np.full((len(cells), n_max), len(cat), np.int64)
+    fill = np.zeros(len(cells), np.int64)
+    pos = np.searchsorted(cells, cat)
+    for row, p in enumerate(pos):          # rows in layer order
+        table[p, fill[p]] = row
+        fill[p] += 1
+    return cells, table
 
 
 def dof_valence(cells, degree: int) -> np.ndarray:

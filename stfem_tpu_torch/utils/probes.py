@@ -2,9 +2,10 @@
 stfem_tpu/utils/probes.py; reference tests/tp_01.cc:449-481, 584-635).
 
 On a structured Cartesian mesh a physical point maps to (cell, reference
-coordinates) arithmetically, so a point value is a (k+1)^dim contraction
-of the owning cell's dofs: only those dofs leave the device.  Probes on
-distorted meshes are not ported."""
+coordinates) arithmetically; on a mesh with explicit (distorted or
+Q1-mapped) vertices a per-cell Newton inversion of the Q1 cell map finds
+them, once, on the host.  A point value is then a (k+1)^dim contraction
+of the owning cell's dofs: only those dofs leave the device."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,8 +18,51 @@ from ..time.tables import get_time_basis, get_time_evaluation_matrix
 from ..types import TimeStepType
 
 
+def locate_in_distorted(mesh: StructuredMesh, p: np.ndarray):
+    """(cell index tuple, reference coordinates) of a physical point on a
+    mesh with explicit vertices: Newton inversion of each candidate cell's
+    Q1 (multilinear) map, the nearest undistorted cell first, then all
+    cells in order (stfem_tpu/utils/probes.py:19-57; the replacement for
+    the reference's RemotePointEvaluation search, tp_01.cc:455-456)."""
+    dim = mesh.dim
+    verts = mesh.vertices
+    corners_b = list(np.ndindex(*((2,) * dim)))
+    guess = tuple(int(np.clip((p[d] - mesh.lower[d]) / mesh.h[d], 0,
+                              mesh.cells[d] - 1)) for d in range(dim))
+    cands = [guess] + [c for c in np.ndindex(*mesh.cells) if c != guess]
+    for cidx in cands:
+        V = np.stack([verts[tuple(np.add(cidx, b))] for b in corners_b])
+        xi = np.full(dim, 0.5)
+        ok = False
+        for _ in range(30):
+            w = np.ones(len(corners_b))
+            dw = np.ones((dim, len(corners_b)))
+            for d in range(dim):
+                f = np.array([xi[d] if b[d] else 1.0 - xi[d]
+                              for b in corners_b])
+                g = np.array([1.0 if b[d] else -1.0 for b in corners_b])
+                w = w * f
+                for e in range(dim):
+                    dw[e] = dw[e] * (g if e == d else f)
+            J = dw @ V                      # (dim_xi, dim_x)
+            try:
+                dxi = np.linalg.solve(J.T, p - w @ V)
+            except np.linalg.LinAlgError:
+                break
+            xi = xi + dxi
+            if np.linalg.norm(dxi) < 1e-13:
+                ok = True
+                break
+        if ok and np.all(xi > -1e-10) and np.all(xi < 1 + 1e-10):
+            return cidx, np.clip(xi, 0.0, 1.0)
+    raise ValueError(f"probe point {p} not found in the distorted mesh")
+
+
 class PointEvaluator:
-    """Evaluate a dof-grid field at fixed physical points."""
+    """Evaluate a dof-grid field at fixed physical points (Cartesian
+    meshes: arithmetic cell lookup; explicit vertices: Newton inversion of
+    the Q1 cell map, consistent with dof_coordinates' Q1 node
+    placement)."""
 
     def __init__(self, mesh: StructuredMesh, degree: int, points):
         self.mesh, self.degree = mesh, degree
@@ -26,15 +70,19 @@ class PointEvaluator:
         basis = LagrangeBasis(np.asarray(q_nodes_1d(degree)))
         self.cells_of_point, self.weights = [], []
         for p in self.points:
-            ci, w = [], []
-            for d in range(mesh.dim):
-                c = int(np.clip((p[d] - mesh.lower[d]) / mesh.h[d], 0,
-                                mesh.cells[d] - 1))
-                xi = (p[d] - mesh.lower[d]) / mesh.h[d] - c
-                ci.append(c)
-                w.append(basis.eval_matrix(np.array([xi]))[0])
+            if mesh.vertices is not None:
+                ci, xi = locate_in_distorted(mesh, p)
+                ci = list(ci)
+            else:
+                ci, xi = [], []
+                for d in range(mesh.dim):
+                    c = int(np.clip((p[d] - mesh.lower[d]) / mesh.h[d], 0,
+                                    mesh.cells[d] - 1))
+                    ci.append(c)
+                    xi.append((p[d] - mesh.lower[d]) / mesh.h[d] - c)
             self.cells_of_point.append(ci)
-            self.weights.append(w)
+            self.weights.append([basis.eval_matrix(np.array([xi[d]]))[0]
+                                 for d in range(mesh.dim)])
 
     def tensor(self, u: torch.Tensor) -> torch.Tensor:
         """u: [..., *dofshape] tensor -> [..., n_points] on u's device

@@ -246,8 +246,9 @@ def test_functionals(grid):
 
 
 def test_still_raising():
-    """The weak obstacle, the Navier modes, FE_Q pressure and the
-    Q1-interpolated vertex map are not ported: they raise."""
+    """The weak obstacle, the Navier modes and FE_Q pressure are not
+    ported: they raise.  The Q1-interpolated vertex map is ported: it maps
+    the vertex grid (its parity is tests/test_torch_distort.py's)."""
     from stfem_tpu_torch.stmg.gmg import build_stmg_stokes
     _, tm = GRIDS["square"](0)
     with pytest.raises(NotImplementedError):
@@ -267,6 +268,7 @@ def test_still_raising():
     with pytest.raises(NotImplementedError):
         tstokes.run_dfg_square(refinement=0, n_slabs=1, weak_obstacle=True,
                                device="cpu")
-    with pytest.raises(NotImplementedError):
-        StructuredMesh([1, 1], [0.0, 0.0], [1.0, 1.0],
-                       vertex_map=lambda x: x)
+    q1 = StructuredMesh([1, 1], [0.0, 0.0], [1.0, 1.0],
+                        vertex_map=lambda x: 2.0 * x)
+    np.testing.assert_array_equal(q1.vertices, [[[0, 0], [0, 2]],
+                                                [[2, 0], [2, 2]]])

@@ -4,7 +4,10 @@ smoothing range 5):
 
 - the weak lid-driven cavity at refinement 2 (2 slabs) through both
   run_configs with "smoother" chebyshev and "smoothingSteps" 2: FGMRES
-  iterations within 1, u and p within 1e-8 of their largest entry;
+  iterations within 1, u and p within 1e-8 of their largest entry; the
+  same at refinements 3 and 4 with the solver block of
+  configs/tp03stokes_lid_2d_chebyshev.json (slow: the iterations' growth
+  with refinement is stfem_tpu's own; -s prints both packages' counts);
 - a GMRES coarse solve on the enclosed flow's levels (2 x 2 cells at
   refinement 2, the routing to the pseudo-inverse switched off by
   GMG.DIRECT_COARSE_MAX = 0 in both packages): the port's coarse solve, with
@@ -13,6 +16,8 @@ smoothing range 5):
   parameters within 1e-5;
 - the routing rule: a coarse level of at most GMG.DIRECT_COARSE_MAX
   unknowns goes to the FP64 pseudo-inverse whatever the config asks."""
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ from stfem_tpu.stmg.gmg import GMGParams as JParams
 from stfem_tpu.stmg.gmg import build_stmg_stokes as jbuild
 from stfem_tpu.types import SupportedSmoothers as JSmoothers
 from stfem_tpu.types import TimeStepType as JT
+from stfem_tpu_torch.drivers.tp03stokes import CONFIGS
 from stfem_tpu_torch.mesh.grid import StructuredMesh
 from stfem_tpu_torch.stmg.gmg import GMG, GMGParams, build_stmg_stokes
 from stfem_tpu_torch.types import SupportedSmoothers, TimeStepType
@@ -32,6 +38,7 @@ from test_torch_tp03stokes import LID, _both, _zeroed_fgmres, jstokes
 
 torch.set_num_threads(1)
 TAU = 1 / 16
+CHEBYSHEV_LID = CONFIGS / "tp03stokes_lid_2d_chebyshev.json"
 
 
 def test_lid_chebyshev_parity(tmp_path):
@@ -40,6 +47,25 @@ def test_lid_chebyshev_parity(tmp_path):
         mp.setattr(jstokes, "fgmres", _zeroed_fgmres)
         _, (j,), _, (t,) = _both(tmp_path, cfg, (jstokes, "run_lid_driven"),
                                  n_slabs_max=2)
+    assert len(t["iterations"]) == 2
+    assert all(abs(a - b) <= 1 for a, b in zip(t["iterations"],
+                                               j["iterations"]))
+    for n in ("u", "p"):
+        np.testing.assert_allclose(t[n], j[n], rtol=0,
+                                   atol=1e-8 * np.abs(j[n]).max())
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("refinement", [3, 4])
+def test_lid_chebyshev_refinement(tmp_path, refinement):
+    cfg = json.loads(CHEBYSHEV_LID.read_text())
+    cfg.update(refinement=refinement)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jstokes, "fgmres", _zeroed_fgmres)
+        _, (j,), _, (t,) = _both(tmp_path, cfg, (jstokes, "run_lid_driven"),
+                                 n_slabs_max=2)
+    print(f"refinement {refinement}: FGMRES iterations stfem_tpu "
+          f"{j['iterations']}, port {t['iterations']}")
     assert len(t["iterations"]) == 2
     assert all(abs(a - b) <= 1 for a, b in zip(t["iterations"],
                                                j["iterations"]))

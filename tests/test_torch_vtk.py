@@ -4,7 +4,8 @@
   (native/stfem_setup.cc, built here with g++ into the test's directory)
   for a 2D and a 3D field.
 - The 2D practical mode with "doOutput" true (2 x 2 subdivisions at
-  refinement 1, Q3 x dG(2), 2 steps a slab) writes the same files,
+  refinement 1, Q3 x dG(2), 2 steps a slab; stfem_tpu on the native
+  writer built here, as above) writes the same files,
   solution_0001.vtk on, in both packages: equal headers and points, the
   values within 1e-8 of their largest.  stfem_tpu's FGMRES leaves
   rounding noise on the Dirichlet dofs, which the port zeroes after each
@@ -75,7 +76,10 @@ def _read_vtk(path):
     return head, pts, vals
 
 
-def test_practical_output(tmp_path, monkeypatch):
+def test_practical_output(tmp_path, monkeypatch, native_writer):
+    """stfem_tpu's files come from its native (binary) writer, built by
+    the fixture: without it stfem_tpu falls back to ASCII, and whether
+    native/libstfem_setup.so exists depends on which test ran first."""
     cfg = {"problemType": "heat", "timeType": "DG", "feDegree": 2,
            "nTimestepsAtOnce": 2, "subdivisions": "2,2",
            "hyperRectLowerLeft": "0,0", "hyperRectUpperRight": "1,1",
