@@ -15,8 +15,11 @@ moving wall's force and the divergence norm per time dof.
 run_dfg_square: the DFG channel (flow around the obstacle, reference
 stokes_dfg.json) on the dfgBenchmarkSquare grid or its cylinder morph --
 weak inflow with the DFG profile, weak walls, a do-nothing outflow, the
-strong obstacle -- with the obstacle's drag and lift and the divergence
-norm per slab.  The Navier-Stokes cycle is not ported.
+strong or the weak (Nitsche) obstacle -- with the obstacle's drag and
+lift and the divergence norm per slab.  run_navier_stokes_cycle: the
+convergence mode with convection -- per slab a Picard iteration of Oseen
+solves (the operator's "form" mode at the last iterate), started from
+the previous value or from the extrapolation predictor.
 
 Everything runs on `device` (the card unless the caller asks for the
 CPU); each slab reads back its error norms or its functionals rows once.
@@ -40,7 +43,8 @@ from ..ops.stokes import StokesOperator
 from ..problems import stokes as stokes_problem
 from ..system_stokes import StokesSystemMatrix
 from ..time.quadrature import gauss
-from ..time.tables import get_fe_time_weights, get_time_basis, get_time_quad
+from ..time.tables import (get_extrapolation_matrix, get_fe_time_weights,
+                           get_time_basis, get_time_quad)
 from ..types import TimeStepType
 
 F64 = torch.float64
@@ -189,6 +193,55 @@ def _time_rows(type_, fe_degree, tau, n_at_once):
     return times, W
 
 
+def _force_assembler(S: StokesOperator, type_, fe_degree, tau, n_at_once,
+                     viscosity, navier=False):
+    """time -> [T, n_u + n_p]: the manufactured momentum force (with the
+    convection term when navier) at QGauss(u_degree + 1), like the
+    operator, integrated per time quadrature point and combined by the
+    diagonal-Alpha rule (_time_rows); zero pressure rows."""
+    mesh, dim, dev = S.mesh, S.dim, S.device
+    S1 = torch.as_tensor(shape_data_1d(S.u_degree, S.n_q).S, dtype=F64,
+                         device=dev)
+    fcoords = torch.as_tensor(mesh.quad_coordinates(S.n_q), dtype=F64,
+                              device=dev)
+    t_off, Wf = _time_rows(type_, fe_degree, tau, n_at_once)
+    Wf = torch.as_tensor(Wf, dtype=F64, device=dev)
+    zero_p = torch.zeros((Wf.shape[0], S.n_p), dtype=F64, device=dev)
+
+    def assemble_force(time):
+        t = torch.as_tensor(time + t_off, dtype=F64, device=dev).reshape(
+            (-1,) + (1,) * (2 * dim))
+        f = torch.movedim(stokes_problem.rhs_u(fcoords, t, viscosity,
+                                               navier=navier),
+                          -1, 1) * S.jxw        # [n_tq, c, *cells, *q]
+        F = cell_scatter(_sumfac([S1] * dim, f, dim, forward=False),
+                         mesh.cells, S.u_degree) * S.mask_u
+        return torch.cat([Wf @ F.reshape(F.shape[0], -1), zero_p], 1)
+
+    return assemble_force
+
+
+def _add_errors(acc: torch.Tensor, e: torch.Tensor) -> None:
+    """Accumulate a slab's StokesErrorCalculator.evaluate row into acc:
+    the squared norms summed, the Linf norms maxed."""
+    acc[:3] += e[:3]
+    acc[3] = max(acc[3], e[3])
+    acc[4:6] += e[4:6]
+    acc[6] = max(acc[6], e[6])
+
+
+def _cycle_result(mesh, S, T, iters, acc) -> StokesCycleResult:
+    l2, h1, hdiv, linf, l2p, h1p, linfp = acc.tolist()
+    return StokesCycleResult(
+        n_cells=mesh.n_cells, n_dofs_u=S.n_u, n_dofs_p=S.n_p,
+        n_blocks=2 * T, n_timesteps=len(iters),
+        total_iterations=sum(iters), avg_iterations=sum(iters) / len(iters),
+        l2_l2_u=float(np.sqrt(l2)), linf_linf_u=linf,
+        l2_h1_u=float(np.sqrt(h1)), l2_hdiv_u=float(np.sqrt(hdiv)),
+        l2_l2_p=float(np.sqrt(l2p)), linf_linf_p=linfp,
+        l2_h1_p=float(np.sqrt(h1p)), slab_iterations=iters)
+
+
 def run_stokes_cycle(refinement: int, fe_degree: int,
                      type_: TimeStepType = TimeStepType.DG,
                      n_timesteps_at_once: int = 1,
@@ -234,24 +287,8 @@ def run_stokes_cycle(refinement: int, fe_degree: int,
         rhs_matrix = StokesSystemMatrix(S, Mu, a, b,
                                         gamma=g if is_cgp else None,
                                         zeta=z if is_cgp else g, type_=type_)
-        # the force at QGauss(u_degree + 1), like the operator
-        S1 = torch.as_tensor(shape_data_1d(u_degree, n_q).S, dtype=F64,
-                             device=device)
-        fcoords = torch.as_tensor(mesh.quad_coordinates(n_q), dtype=F64,
-                                  device=device)
-        t_off, Wf = _time_rows(type_, fe_degree, tau, n_timesteps_at_once)
-        Wf = torch.as_tensor(Wf, dtype=F64, device=device)
-        zero_p = torch.zeros((T, S.n_p), dtype=F64, device=device)
-
-        def assemble_force(time):
-            t = torch.as_tensor(time + t_off, dtype=F64,
-                                device=device).reshape((-1,) + (1,) * (
-                                    2 * dim))
-            f = torch.movedim(stokes_problem.rhs_u(fcoords, t, viscosity),
-                              -1, 1) * S.jxw    # [n_tq, c, *cells, *q]
-            F = cell_scatter(_sumfac([S1] * dim, f, dim, forward=False),
-                             mesh.cells, u_degree) * S.mask_u
-            return torch.cat([Wf @ F.reshape(F.shape[0], -1), zero_p], 1)
+        assemble_force = _force_assembler(S, type_, fe_degree, tau,
+                                          n_timesteps_at_once, viscosity)
 
         precond = None
         if preconditioner_factory is not None:
@@ -308,24 +345,11 @@ def run_stokes_cycle(refinement: int, fe_degree: int,
             p_time = p_time.clone()
             p_time[..., 0] -= means.reshape((T,) + (1,) * dim)
         prev_u, prev_p = S.unpack(prev_flat)
-        e = err.evaluate(time, tau, u_time, p_time, prev_u, prev_p,
-                         n_timesteps_at_once).cpu()    # one read-back
-        acc[:3] += e[:3]
-        acc[3] = max(acc[3], e[3])
-        acc[4:6] += e[4:6]
-        acc[6] = max(acc[6], e[6])
+        _add_errors(acc, err.evaluate(time, tau, u_time, p_time, prev_u,
+                                      prev_p, n_timesteps_at_once).cpu())
         prev_flat = S.pack(u_time[-1], p_time[-1])
         time += n_timesteps_at_once * tau
-
-    l2, h1, hdiv, linf, l2p, h1p, linfp = acc.tolist()
-    return StokesCycleResult(
-        n_cells=mesh.n_cells, n_dofs_u=S.n_u, n_dofs_p=S.n_p,
-        n_blocks=2 * T, n_timesteps=len(iters),
-        total_iterations=sum(iters), avg_iterations=sum(iters) / len(iters),
-        l2_l2_u=float(np.sqrt(l2)), linf_linf_u=linf,
-        l2_h1_u=float(np.sqrt(h1)), l2_hdiv_u=float(np.sqrt(hdiv)),
-        l2_l2_p=float(np.sqrt(l2p)), linf_linf_p=linfp,
-        l2_h1_p=float(np.sqrt(h1p)), slab_iterations=iters)
+    return _cycle_result(mesh, S, T, iters, acc)
 
 
 def run_lid_driven(refinement: int = 3, fe_degree: int = 1,
@@ -522,6 +546,137 @@ def run_lid_driven(refinement: int = 3, fe_degree: int = 1,
                 tau=tau, time=time, n_dofs=S.n_u + S.n_p, n_blocks=T)
 
 
+def run_navier_stokes_cycle(refinement: int, fe_degree: int,
+                            type_: TimeStepType = TimeStepType.DG,
+                            n_timesteps_at_once: int = 1,
+                            viscosity: float = 1.0, end_time: float = 1.0,
+                            n_picard: int = 3, preconditioner_factory=None,
+                            gmres_maxiter: int = 200, rel_tol: float = 1e-10,
+                            delta0: float = 0.0,
+                            nonlinear_extrapolation=None,
+                            n_slabs_max: int | None = None, device="cuda",
+                            timer=None, on_slab=None) -> StokesCycleResult:
+    """The Navier-Stokes convergence cycle (stfem_tpu drivers/stokes.py::
+    run_navier_stokes_cycle): the manufactured solution with the
+    convection term in the rhs (exact_solution.h:287-317) and, per slab,
+    n_picard Oseen solves, each with the operator's "form" mode at the
+    previous iterate u_lin; the preconditioner is built once, from the
+    factory, for the whole cycle.  The first u_lin of a slab is the
+    previous value broadcast (the Constant predictor), or with
+    nonlinear_extrapolation (a types.NonlinearExtrapolation) the
+    extrapolation matrix applied to the previous slab's start value and
+    time dofs (the reference's extrapolate_nonlinear, fe_time.h:
+    1223-1240; single-step slabs only).  The iterations counted are the
+    last Picard solve's, the mean pressure is removed per time block and
+    the error norms are run_stokes_cycle's.  n_slabs_max cuts the march.
+
+    timer: as in run_stokes_cycle, with "picard" (one Oseen solve,
+    synchronized) inside each "step" (the slab's Picard iteration).
+    on_slab(info), if given, is called after each Oseen solve with its
+    FGMRES problem and result (matrix, u_lin -- the linearization it
+    solved with --, rhs, x0, x, stats, time, time_step, preconditioner,
+    picard: the solve's index in the slab) and `resolve`, which solves
+    it again."""
+    device = torch.device(device)
+    scope = timer.scope if timer is not None else (lambda *a, **k:
+                                                   nullcontext())
+    dim = 2
+    is_cgp = type_ == TimeStepType.CGP
+    u_degree, p_degree = fe_degree + 1, fe_degree
+    n_q = u_degree + 1
+    nt = fe_degree if is_cgp else fe_degree + 1
+    T = nt * n_timesteps_at_once
+    with scope("setup"):
+        mesh, tau = _step_geometry(refinement, end_time)
+        S = StokesOperator(mesh, u_degree, p_degree, n_q, viscosity,
+                           device=device, delta0=delta0)
+        Mu = LaplaceMassOperator(mesh, u_degree, n_q, 1.0, 0.0,
+                                 device=device, mask=S.mask_u_np)
+        a, b, g, z = get_fe_time_weights(type_, fe_degree, tau,
+                                         n_timesteps_at_once)
+        matrix = StokesSystemMatrix(S, Mu, a, b)
+        rhs_matrix = StokesSystemMatrix(S, Mu, a, b,
+                                        gamma=g if is_cgp else None,
+                                        zeta=z if is_cgp else g, type_=type_)
+        assemble_force = _force_assembler(S, type_, fe_degree, tau,
+                                          n_timesteps_at_once, viscosity,
+                                          navier=True)
+
+        precond = None
+        if preconditioner_factory is not None:
+            ctx = dict(mesh=mesh, fe_degree=fe_degree, u_degree=u_degree,
+                       p_degree=p_degree, type_=type_, viscosity=viscosity,
+                       n_timesteps_at_once=n_timesteps_at_once,
+                       time_step=tau, n_q=n_q, refinement=refinement,
+                       weak_faces=(), device=device)
+            with scope("setup:gmg"):
+                precond = preconditioner_factory(ctx)
+        E_extra = None
+        if nonlinear_extrapolation is not None:
+            assert n_timesteps_at_once == 1, \
+                "extrapolation predictor wired for single-step slabs"
+            E_extra = torch.as_tensor(get_extrapolation_matrix(
+                type_, nonlinear_extrapolation, fe_degree, 1.0, 0.0, 0.0),
+                dtype=F64, device=device)
+        err = StokesErrorCalculator(S, type_, fe_degree)
+        coords_u = torch.as_tensor(mesh.dof_coordinates(u_degree),
+                                   dtype=F64, device=device)
+        u0 = torch.movedim(stokes_problem.exact_u(coords_u, 0.0), -1, 0)
+        p0 = torch.zeros(S.p_shape, dtype=F64, device=device)  # p(0) = 0
+        prev_flat = S.pack(u0, p0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def solve_oseen(prev_flat, u_lin, time):
+        prev_u, prev_p = S.unpack(prev_flat)
+        rhs = rhs_matrix.vmult_slice(prev_u, prev_p) + assemble_force(time)
+        x0 = prev_flat.expand(T, -1)
+        res = fgmres(lambda v: matrix.vmult(v, u_lin=u_lin, mode="form"),
+                     rhs, x0, precondition=precond or (lambda v: v),
+                     maxiter=gmres_maxiter, abstol=1e-12, reltol=rel_tol)
+        return rhs, x0, res
+
+    detj = float(np.prod(mesh.h))
+    time, iters, acc = 0.0, [], torch.zeros(7, dtype=F64)
+    prev_slab_u = prev_slab_start = None
+    while time < end_time - 1e-12 and (n_slabs_max is None
+                                       or len(iters) < n_slabs_max):
+        with scope("step", sync=device):
+            if E_extra is not None and prev_slab_u is not None:
+                src = torch.cat([prev_slab_start[None], prev_slab_u])
+                u_lin = torch.einsum("ij,j...->i...", E_extra, src)
+            else:
+                u_lin = S.unpack(prev_flat)[0].expand(
+                    (T, dim) + S.dof_shape_u)
+            for i in range(n_picard):
+                with scope("picard", sync=device):
+                    rhs, x0, res = solve_oseen(prev_flat, u_lin, time)
+                if on_slab is not None:
+                    on_slab(dict(matrix=matrix, u_lin=u_lin, rhs=rhs, x0=x0,
+                                 x=res.x, stats=res, time=time,
+                                 time_step=tau, preconditioner=precond,
+                                 picard=i,
+                                 resolve=lambda p=prev_flat, ul=u_lin,
+                                 t=time: solve_oseen(p, ul, t)))
+                u_lin = S.unpack(res.x)[0]
+        if not res.converged:
+            raise RuntimeError(f"FGMRES stalled at t={time}: "
+                               f"{res.iterations} iterations, residual "
+                               f"{res.residual:.3e}")
+        iters.append(res.iterations)
+        u_time, p_time = S.unpack(res.x)
+        means = p_time[..., 0].sum(dim=tuple(range(1, dim + 1))) * detj
+        p_time = p_time.clone()
+        p_time[..., 0] -= means.reshape((T,) + (1,) * dim)
+        prev_u, prev_p = S.unpack(prev_flat)
+        _add_errors(acc, err.evaluate(time, tau, u_time, p_time, prev_u,
+                                      prev_p, n_timesteps_at_once).cpu())
+        prev_slab_start, prev_slab_u = prev_u, u_time
+        prev_flat = S.pack(u_time[-1], p_time[-1])
+        time += n_timesteps_at_once * tau
+    return _cycle_result(mesh, S, T, iters, acc)
+
+
 def dfg_square_mesh(refinement: int = 1, dim: int = 2, vertex_map=None,
                     map_exact: bool = False) -> StructuredMesh:
     """The dfgBenchmarkSquare channel: a non-uniform tensor subdivision
@@ -610,16 +765,15 @@ def run_dfg_square(refinement: int = 1, fe_degree: int = 1,
     outflow and the strongly eliminated obstacle, from rest, one step of
     tau per slab, n_slabs slabs (end_time does not cut the march, as in
     stfem_tpu).  cylinder: the dfgBenchmark grid (the curved cylinder
-    through the exact map) instead of dfgBenchmarkSquare.  weak_obstacle
-    (the Nitsche obstacle) is not ported and raises.  timer and on_slab
-    as in run_stokes_cycle.
+    through the exact map) instead of dfgBenchmarkSquare.  weak_obstacle:
+    the obstacle's no-slip by Nitsche terms on its (curved) faces, the
+    reference's scheme (operators.h:1658-1751), its boundary dofs free;
+    the factory's ctx carries the flag.  timer and on_slab as in
+    run_stokes_cycle.
 
     Returns dict(iterations (per slab), u, p (the last block, NumPy),
     mesh, time, drag_lift [n_slabs, dim] (scaled by 2 / (D u_mean^2 H),
     D = 0.1, H = 0.41), divergence (per slab), tau, n_dofs, n_blocks)."""
-    if weak_obstacle:
-        raise NotImplementedError("the weak (Nitsche) obstacle is not "
-                                  "ported")
     device = torch.device(device)
     scope = timer.scope if timer is not None else (lambda *a, **k:
                                                    nullcontext())
@@ -636,7 +790,7 @@ def run_dfg_square(refinement: int = 1, fe_degree: int = 1,
             else dfg_square_mesh(refinement)
         S = StokesOperator(mesh, u_degree, p_degree, n_q, viscosity,
                            device=device, weak_faces=weak_faces,
-                           free_faces=free_faces)
+                           free_faces=free_faces, weak_obstacle=weak_obstacle)
         Mu = LaplaceMassOperator(mesh, u_degree, n_q, 1.0, 0.0,
                                  device=device, mask=S.mask_u_np)
         a, b, g, z = get_fe_time_weights(type_, fe_degree, tau, 1)
@@ -670,7 +824,8 @@ def run_dfg_square(refinement: int = 1, fe_degree: int = 1,
                        p_degree=p_degree, type_=type_, viscosity=viscosity,
                        n_timesteps_at_once=1, time_step=tau, n_q=n_q,
                        refinement=refinement, weak_faces=weak_faces,
-                       free_faces=free_faces, device=device)
+                       free_faces=free_faces, weak_obstacle=weak_obstacle,
+                       device=device)
             with scope("setup:gmg"):
                 precond = preconditioner_factory(ctx)
         from ..ops.functionals import (compute_divergence_norm,

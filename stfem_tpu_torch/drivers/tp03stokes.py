@@ -71,7 +71,9 @@ def stmg_factory(p: Parameters):
             use_pmg=p.use_pmg, fe_degree_min=max(p.fe_degree_min, 1),
             fe_degree_min_space=max(p.fe_degree_min_space, 1),
             weak_faces=ctx.get("weak_faces", ()),
-            free_faces=ctx.get("free_faces", ()), device=ctx["device"])
+            free_faces=ctx.get("free_faces", ()),
+            weak_obstacle=ctx.get("weak_obstacle", False),
+            device=ctx["device"])
 
     return factory if p.space_time_mg else None
 

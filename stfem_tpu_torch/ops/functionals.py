@@ -15,77 +15,22 @@ import torch
 
 from ..mesh.fe import q_nodes_1d, shape_data_1d
 from ..mesh.fe_dgp import dgp_exponents, shifted_legendre_value
-from ..mesh.grid import map_jacobians
 from ..time.quadrature import LagrangeBasis, gauss
 from ..utils.assembly import cell_dof_indices
 from .spatial import _sumfac, cell_gather
-from .stokes import StokesOperator
+from .stokes import StokesOperator, face_basis, face_jacobians, obstacle_faces
 
 __all__ = ["obstacle_faces", "compute_drag_lift", "compute_drag_lift_mapped",
            "compute_wall_force", "compute_divergence_norm"]
 
 
-def obstacle_faces(mesh):
-    """All interior faces between active and removed cells: a list of
-    (axis d, index of the ACTIVE cell, side), side 1 where the obstacle
-    lies on the + side of the active cell."""
-    cm = mesh.cell_mask
-    assert cm is not None
-    out = []
-    dim = mesh.dim
-    for d in range(dim):
-        lo, hi = [slice(None)] * dim, [slice(None)] * dim
-        lo[d], hi[d] = slice(0, -1), slice(1, None)
-        diff = cm[tuple(lo)] - cm[tuple(hi)]
-        for idx in np.argwhere(diff == 1.0):      # active | removed
-            out.append((d, tuple(int(i) for i in idx), 1))
-        for idx in np.argwhere(diff == -1.0):     # removed | active
-            jdx = [int(i) for i in idx]
-            jdx[d] += 1
-            out.append((d, tuple(jdx), 0))
-    return out
-
-
-def _face_tables(S: StokesOperator, d0: int, side: int):
-    """Reference-cell tables at the Gauss points of face (d0, side): the
-    basis gradients G[e, a, q] and the modal pressure trace P[m, q]
-    (face points lexicographic over the other axes)."""
-    dim, k, nq = S.dim, S.u_degree, S.n_q
-    edge = np.array([float(side)])
-    basis = LagrangeBasis(np.asarray(q_nodes_1d(k)))
-    V1e, D1e = basis.eval_matrix(edge)[0], basis.deriv_matrix(edge)[0]
-    sd = shape_data_1d(k, nq)
-    qx = gauss(nq)[0]
-    oth = [d for d in range(dim) if d != d0]
-    A, Qf = (k + 1) ** dim, nq ** (dim - 1)
-    a_idx = np.stack(np.meshgrid(*[np.arange(k + 1)] * dim, indexing="ij"),
-                     -1).reshape(A, dim)
-    q_idx = np.stack(np.meshgrid(*[np.arange(nq)] * len(oth),
-                                 indexing="ij"), -1).reshape(Qf, len(oth))
-    G = np.ones((dim, A, Qf))
-    for e in range(dim):
-        for d in range(dim):
-            if d == d0:
-                G[e] *= (D1e if e == d0 else V1e)[a_idx[:, d]][:, None]
-            else:
-                j = oth.index(d)
-                G[e] *= (sd.D if e == d else sd.S)[q_idx[None, :, j],
-                                                   a_idx[:, d, None]]
-    exps = dgp_exponents(dim, S.p_degree)
-    P = np.ones((len(exps), Qf))
-    for m, ex in enumerate(exps):
-        P[m] *= shifted_legendre_value(ex[d0], edge)[0]
-        for j, d in enumerate(oth):
-            P[m] *= shifted_legendre_value(ex[d], qx)[q_idx[:, j]]
-    return G, P
-
-
-def _obstacle_traction(S: StokesOperator, u, p, scale: float,
-                       mapped: bool) -> torch.Tensor:
+def _obstacle_traction(S: StokesOperator, u, p,
+                       scale: float) -> torch.Tensor:
     """scale * sum over the obstacle faces of int [p n - nu (grad u +
     grad u^T) n] ds, n outward from the fluid (into the obstacle): per
-    face point the Jacobian J of the cell (diag of its steps, times the
-    map's Jacobian when mapped), n ds = n_sign detJ J^{-T} e_d0 dxi
+    face point the Jacobian J of the cell (ops/stokes.py::face_jacobians:
+    the diagonal of its steps, times the map's Jacobian on a mapped
+    mesh), n ds = n_sign detJ J^{-T} e_d0 dxi
     (Nanson), grad u through J^{-1}; every face in one batched pass per
     (axis, side)."""
     mesh, dim, k, nq = S.mesh, S.dim, S.u_degree, S.n_q
@@ -93,8 +38,7 @@ def _obstacle_traction(S: StokesOperator, u, p, scale: float,
     u = torch.as_tensor(u, dtype=S.dtype, device=S.device)
     p = torch.as_tensor(p, dtype=S.dtype, device=S.device)
     as_t = lambda a: torch.as_tensor(a, dtype=S.dtype, device=S.device)
-    qx, qw = gauss(nq)
-    Qf = nq ** (dim - 1)
+    qw = gauss(nq)[1]
     wq = np.ones(1)
     for _ in range(dim - 1):
         wq = (wq[:, None] * qw[None, :]).reshape(-1)
@@ -102,8 +46,6 @@ def _obstacle_traction(S: StokesOperator, u, p, scale: float,
     C = mesh.n_cells
     uflat = u.reshape(dim, -1)
     pflat = p.reshape(C, -1)
-    steps = [mesh.steps(d) for d in range(dim)]
-    starts = [mesh.axis_vertices(d)[:-1] for d in range(dim)]
     faces = obstacle_faces(mesh)
     F = torch.zeros(dim, dtype=S.dtype, device=S.device)
     for d0 in range(dim):
@@ -113,27 +55,12 @@ def _obstacle_traction(S: StokesOperator, u, p, scale: float,
                 continue
             cidx = np.asarray(grp)                      # [Fg, dim]
             cflat = np.ravel_multi_index(cidx.T, mesh.cells)
-            hs = np.stack([steps[d][cidx[:, d]] for d in range(dim)], -1)
-            J = np.zeros((len(grp), Qf, dim, dim))
-            J[..., range(dim), range(dim)] = hs[:, None, :]
-            if mapped:
-                oth = [d for d in range(dim) if d != d0]
-                pts = np.zeros((len(grp), Qf, dim))
-                pts[..., d0] = (starts[d0][cidx[:, d0]]
-                                + hs[:, d0] * side)[:, None]
-                q_idx = np.stack(np.meshgrid(*[np.arange(nq)] * len(oth),
-                                             indexing="ij"), -1).reshape(
-                                                 Qf, len(oth))
-                for j, d in enumerate(oth):
-                    pts[..., d] = (starts[d][cidx[:, d], None]
-                                   + hs[:, d, None] * qx[q_idx[:, j]])
-                Jm = map_jacobians(mesh.vertex_map, pts.reshape(-1, dim))
-                J = Jm.reshape(J.shape) * hs[:, None, None, :]
+            J = face_jacobians(mesh, cidx, d0, side, nq)
             detJ = np.linalg.det(J)
             Jinv = np.linalg.inv(J)                     # [Fg, Qf, xi, x]
             n_sign = 1.0 if side == 1 else -1.0
             wn = as_t(n_sign * (detJ * wq)[..., None] * Jinv[:, :, d0, :])
-            G, P = _face_tables(S, d0, side)
+            _, G, P = face_basis(dim, k, nq, S.p_degree, d0, side)
             uloc = uflat[:, torch.as_tensor(cdofs[cflat],
                                             device=S.device)]  # [c, Fg, A]
             ghat = torch.einsum("cfa,eaq->fceq", uloc, as_t(G))
@@ -154,7 +81,7 @@ def compute_drag_lift(S: StokesOperator, u, p, scale: float) -> torch.Tensor:
     *grid], p: [*cells, n_ploc]; returns [dim]."""
     if S.mesh.vertex_map is not None:
         return compute_drag_lift_mapped(S, u, p, scale)
-    return _obstacle_traction(S, u, p, scale, mapped=False)
+    return _obstacle_traction(S, u, p, scale)
 
 
 def compute_drag_lift_mapped(S: StokesOperator, u, p,
@@ -162,7 +89,7 @@ def compute_drag_lift_mapped(S: StokesOperator, u, p,
     """Drag/lift over the curved obstacle boundary of a vertex-mapped mesh
     (the DFG cylinder): the base grid's face quadrature pushed through the
     map, the weighted outward normal by Nanson's formula."""
-    return _obstacle_traction(S, u, p, scale, mapped=True)
+    return _obstacle_traction(S, u, p, scale)
 
 
 def compute_wall_force(S: StokesOperator, u, p, face,

@@ -1,10 +1,10 @@
 """Matrix-free Stokes saddle-point operator on structured meshes
 (counterpart of stfem_tpu/ops/stokes.py::StokesOperator; the DGP-pressure
 case with strong, Nitsche or free velocity faces, on uniform, masked,
-non-uniform and exactly mapped meshes).
+non-uniform and exactly mapped meshes, linear or in the Navier modes).
 
 Weak form per cell (reference include/operators.h:1525-1575):
-  u-row:  nu (grad u, grad v) - (p, div v)
+  u-row:  nu (grad u, grad v) - (p, div v) [- convection]
   p-row:  (div u, q)
 Velocity: vector Q_k (component axis leading), pressure: modal DGP.  The
 operator acts batched over arbitrary leading axes (time positions).
@@ -22,6 +22,13 @@ the tables are the reference gradients and the geometry is applied per
 cell: the inverse steps of a non-uniform grid, or the inverse Jacobian
 per (cell, quadrature point) of a mapped one.
 
+The Navier modes (reference OperatorMode dispatch, operators.h:1530-1567)
+add the convection of the linearization velocity u_lin to the gradient
+term, every component pair at once: "jacobian" subtracts u_lin_c du_d +
+du_c u_lin_d, "form" (the Picard / Oseen operator) u_c u_lin_d.  Only in
+those modes the CIP interior-face gradient-jump penalty (delta0) and the
+backflow term on the free faces (outflow_penalty) enter.
+
 Weak faces (reference do_boundary_face_integral_local and
 StokesNitscheMatrixFreeOperator, operators.h:1658-1951): each listed
 boundary face (axis, side) carries Nitsche terms with penalties gamma1 =
@@ -30,8 +37,12 @@ dofs stay free.  A face's terms are one batched pass over its layer of
 cells, every velocity component at once; the per-face tables are built
 once, at construction.  Free (do-nothing) faces are unconstrained and
 carry no term.  A removed cell's velocity dofs are eliminated (the
-strong obstacle of the DFG channel).  The Navier modes, the weak
-obstacle, CIP, backflow and FE_Q pressure are not ported and raise.
+strong obstacle of the DFG channel), or, with weak_obstacle, only those
+that no active cell carries: the obstacle's faces then carry the same
+Nitsche terms with g = 0, as dense per-face matrices over the (possibly
+curved) face quadrature, built once.  Every sum over faces or planes
+that meet a dof is owner-computes (utils/assembly.py::layer_sources):
+no float atomics.  FE_Q pressure is not ported and raises.
 """
 from __future__ import annotations
 
@@ -43,11 +54,110 @@ from ..mesh.fe_dgp import (dgp_exponents, dgp_values_at_tensor_gauss,
                            n_dgp_dofs, shifted_legendre_value)
 from ..mesh.grid import StructuredMesh, map_jacobians, map_points
 from ..time.quadrature import LagrangeBasis, gauss
-from ..utils.assembly import cell_dof_indices, overlap_sources
+from ..utils.assembly import (cell_dof_indices, layer_sources,
+                              overlap_sources)
 from .spatial import (LaplaceMassOperator, _sumfac, basis_tensors,
-                      cell_gather, cell_scatter, geometry_factors)
+                      cell_gather, cell_scatter, geometry_factors, layer_sum)
 
-__all__ = ["StokesOperator"]
+__all__ = ["StokesOperator", "obstacle_faces", "face_basis",
+           "face_jacobians"]
+
+
+def obstacle_faces(mesh):
+    """All interior faces between active and removed cells: a list of
+    (axis d, index of the ACTIVE cell, side), side 1 where the obstacle
+    lies on the + side of the active cell."""
+    cm = mesh.cell_mask
+    assert cm is not None
+    out = []
+    dim = mesh.dim
+    for d in range(dim):
+        lo, hi = [slice(None)] * dim, [slice(None)] * dim
+        lo[d], hi[d] = slice(0, -1), slice(1, None)
+        diff = cm[tuple(lo)] - cm[tuple(hi)]
+        for idx in np.argwhere(diff == 1.0):      # active | removed
+            out.append((d, tuple(int(i) for i in idx), 1))
+        for idx in np.argwhere(diff == -1.0):     # removed | active
+            jdx = [int(i) for i in idx]
+            jdx[d] += 1
+            out.append((d, tuple(jdx), 0))
+    return out
+
+
+def face_basis(dim: int, k: int, nq: int, p_degree: int, d0: int,
+               side: int):
+    """Reference-cell tables at the Gauss points of the cell face (d0,
+    side), the face points lexicographic over the other axes: the Q_k
+    basis values Phi[a, q], its reference gradients G[e, a, q] and the
+    modal DGP(p_degree) pressure trace P[m, q] (NumPy float64)."""
+    edge = np.array([float(side)])
+    basis = LagrangeBasis(np.asarray(q_nodes_1d(k)))
+    V1e, D1e = basis.eval_matrix(edge)[0], basis.deriv_matrix(edge)[0]
+    sd = shape_data_1d(k, nq)
+    qx = gauss(nq)[0]
+    oth = [d for d in range(dim) if d != d0]
+    A, Qf = (k + 1) ** dim, nq ** (dim - 1)
+    a_idx = np.stack(np.meshgrid(*[np.arange(k + 1)] * dim, indexing="ij"),
+                     -1).reshape(A, dim)
+    q_idx = np.stack(np.meshgrid(*[np.arange(nq)] * len(oth),
+                                 indexing="ij"), -1).reshape(Qf, len(oth))
+    Phi = np.ones((A, Qf))
+    G = np.ones((dim, A, Qf))
+    for d in range(dim):
+        if d == d0:
+            Phi *= V1e[a_idx[:, d]][:, None]
+            for e in range(dim):
+                G[e] *= (D1e if e == d0 else V1e)[a_idx[:, d]][:, None]
+        else:
+            j = oth.index(d)
+            Phi *= sd.S[q_idx[None, :, j], a_idx[:, d, None]]
+            for e in range(dim):
+                G[e] *= (sd.D if e == d else sd.S)[q_idx[None, :, j],
+                                                   a_idx[:, d, None]]
+    exps = dgp_exponents(dim, p_degree)
+    P = np.ones((len(exps), Qf))
+    for m, ex in enumerate(exps):
+        P[m] *= shifted_legendre_value(ex[d0], edge)[0]
+        for j, d in enumerate(oth):
+            P[m] *= shifted_legendre_value(ex[d], qx)[q_idx[:, j]]
+    return Phi, G, P
+
+
+def face_jacobians(mesh: StructuredMesh, cidx: np.ndarray, d0: int,
+                   side: int, nq: int) -> np.ndarray:
+    """[Fg, Qf, dim, dim] float64 Jacobians of the reference-cell map at
+    the Gauss points of the faces (d0, side) of the cells cidx [Fg, dim]:
+    the diagonal of the cell's steps, times the vertex map's Jacobian
+    (through torch.func, in float64) on a mapped mesh."""
+    dim = mesh.dim
+    qx = gauss(nq)[0]
+    Qf = nq ** (dim - 1)
+    hs = np.stack([mesh.steps(d)[cidx[:, d]] for d in range(dim)], -1)
+    if mesh.vertex_map is None:
+        J = np.zeros((len(cidx), Qf, dim, dim))
+        J[..., range(dim), range(dim)] = hs[:, None, :]
+        return J
+    oth = [d for d in range(dim) if d != d0]
+    starts = [mesh.axis_vertices(d)[:-1] for d in range(dim)]
+    pts = np.zeros((len(cidx), Qf, dim))
+    pts[..., d0] = (starts[d0][cidx[:, d0]] + hs[:, d0] * side)[:, None]
+    q_idx = np.stack(np.meshgrid(*[np.arange(nq)] * len(oth),
+                                 indexing="ij"), -1).reshape(Qf, len(oth))
+    for j, d in enumerate(oth):
+        pts[..., d] = (starts[d][cidx[:, d], None]
+                       + hs[:, d, None] * qx[q_idx[:, j]])
+    Jm = map_jacobians(mesh.vertex_map, pts.reshape(-1, dim))
+    return Jm.reshape(len(cidx), Qf, dim, dim) * hs[:, None, None, :]
+
+
+def _overlap_1d(y: torch.Tensor, k: int) -> torch.Tensor:
+    """[..., P, k+1] -> [..., P k + 1]: the overlap-add of P consecutive
+    node rows that share their end nodes (cell_scatter along one axis)."""
+    P = y.shape[-2]
+    out = torch.nn.functional.pad(
+        y[..., :k].reshape(y.shape[:-2] + (P * k,)), (0, 1))
+    out[..., k::k] += y[..., k]
+    return out
 
 
 class StokesOperator:
@@ -55,22 +165,27 @@ class StokesOperator:
                  n_q: int, viscosity: float = 1.0, dtype=torch.float64,
                  device="cuda", dg_pressure: bool = True, weak_faces=(),
                  free_faces=(), penalty1: float = 20.0,
-                 penalty2: float = 10.0, weak_obstacle: bool = False):
+                 penalty2: float = 10.0, delta0: float = 0.0,
+                 outflow_penalty: float = 0.0, weak_obstacle: bool = False):
         """weak_faces: boundary faces (axis, side) with Nitsche weak
         Dirichlet conditions; they are not eliminated from the velocity
         mask (corners shared with a strong face stay eliminated).
         free_faces: do-nothing faces (the DFG outflow), unconstrained and
-        without a term.  On a masked mesh every dof of a removed cell is
-        eliminated (the strong obstacle)."""
-        if not dg_pressure or weak_obstacle:
-            raise NotImplementedError("FE_Q pressure and the weak obstacle "
-                                      "are not ported")
+        without a term in the linear modes.  delta0: the CIP penalty and
+        outflow_penalty the backflow penalty of the Navier modes.  On a
+        masked mesh every dof of a removed cell is eliminated (the strong
+        obstacle), or, with weak_obstacle, only those that no active cell
+        carries, and the obstacle's faces carry Nitsche no-slip terms."""
+        if not dg_pressure:
+            raise NotImplementedError("FE_Q pressure is not ported")
         self.mesh = mesh
         self.dim = dim = mesh.dim
         self.u_degree = u_degree
         self.p_degree = p_degree
         self.n_q = n_q
         self.viscosity = float(viscosity)
+        self.delta0 = float(delta0)
+        self.beta = float(outflow_penalty)
         self.dtype = dtype
         self.device = torch.device(device)
         self.dg_pressure = True
@@ -87,17 +202,24 @@ class StokesOperator:
         self.gamma1 = self.viscosity * float(penalty1)
         self.gamma2 = float(penalty2)
         # strong faces eliminated, weak and free faces unconstrained, the
-        # removed cells' dofs eliminated again (stfem_tpu ops/stokes.py
-        # :132-182)
+        # removed cells' dofs eliminated again, or with a weak obstacle
+        # only the dofs that no active cell carries (stfem_tpu
+        # ops/stokes.py:132-182)
+        self.weak_obstacle = bool(weak_obstacle) and mesh.cell_mask is not None
         unconstrained = self.weak_faces + self.free_faces
         mask = mesh.boundary_dof_mask(u_degree)
         for d0, side in unconstrained:
             mask[self._plane(d0, side)] = 1.0
-        if mesh.cell_mask is not None:
-            k = u_degree
+        cell_dofs = lambda cidx: tuple(
+            slice(int(c) * u_degree, int(c) * u_degree + u_degree + 1)
+            for c in cidx)
+        if self.weak_obstacle:
+            mask = np.zeros(self.dof_shape_u)
+            for cidx in np.argwhere(mesh.cell_mask == 1.0):
+                mask[cell_dofs(cidx)] = 1.0
+        elif mesh.cell_mask is not None:
             for cidx in np.argwhere(mesh.cell_mask == 0.0):
-                mask[tuple(slice(int(c) * k, int(c) * k + k + 1)
-                           for c in cidx)] = 0.0
+                mask[cell_dofs(cidx)] = 0.0
         for d in range(dim):
             for side in (0, 1):
                 if (d, side) not in unconstrained:
@@ -109,13 +231,23 @@ class StokesOperator:
         self.n_u = dim * int(np.prod(self.dof_shape_u))
         self.n_p = int(np.prod(self.cells)) * self.n_ploc
         self.uniform = mesh.uniform
-        self._grad_ref = basis_tensors(dim, u_degree, n_q)[1]   # [dim, A, Q]
+        phi, self._grad_ref = basis_tensors(dim, u_degree, n_q)
+        self._Phi = as_t(phi)                                 # [A, Q]
         self._set_geometry(mesh.geometry(n_q))
         self._eye = torch.eye(dim, dtype=dtype, device=self.device).reshape(
             dim, 1, dim, 1)
         self._S1 = as_t(shape_data_1d(u_degree, n_q).S)      # (q, k+1)
         self._faces = [self._face_setup(d0, side)
                        for d0, side in self.weak_faces]
+        self._free = [self._face_setup(d0, side)
+                      for d0, side in self.free_faces]
+        basis = LagrangeBasis(np.asarray(q_nodes_1d(u_degree)))
+        # CIP traces at a cell's ends: d/dx at 1 and 0, the value at 1
+        self._cip = [as_t(basis.deriv_matrix(np.array([1.0]))[0]),
+                     as_t(basis.deriv_matrix(np.array([0.0]))[0]),
+                     as_t(basis.eval_matrix(np.array([1.0]))[0])]
+        self._obstacle = (self._obstacle_face_setup() if self.weak_obstacle
+                          else None)
 
     def _set_geometry(self, geom):
         """The geometry tables of the apply from a Geometry: on a uniform
@@ -239,12 +371,16 @@ class StokesOperator:
     def apply(self, u: torch.Tensor, p: torch.Tensor, mode: str = "none",
               u_lin: torch.Tensor | None = None, mask_input: bool = True):
         """(ru, rp); u: [..., dim, *dofgrid], p: [..., *cells, n_ploc].
-        mode "none" is linear Stokes (the Navier modes are not ported);
-        mask_input=False reads the eliminated velocity dofs too (the strong
-        Dirichlet lift), the output stays masked."""
-        if mode != "none":
-            raise NotImplementedError(f"operator mode {mode!r}: the "
-                                      "Navier-Stokes modes are not ported")
+        mode "none" is linear Stokes; "jacobian" (the Navier
+        linearization: the gradient term less u_lin (x) du + du (x)
+        u_lin) and "form" (the Oseen operator: less du (x) u_lin) take the
+        linearization velocity u_lin [..., dim, *dofgrid] (reference
+        OperatorMode dispatch, operators.h:1530-1567).  mask_input=False
+        reads the eliminated velocity dofs too (the strong Dirichlet
+        lift), the output stays masked."""
+        if mode not in ("none", "jacobian", "form"):
+            raise ValueError(f"operator mode {mode!r}")
+        navier = mode != "none"
         dim, k = self.dim, self.u_degree
         C = int(np.prod(self.cells))
         lead = u.shape[:-dim - 1]
@@ -257,12 +393,31 @@ class StokesOperator:
         rp = ((div * self._wq) @ self._p_basis_at_quad().T).reshape(
             lead + self.p_shape)
         t = self.viscosity * g - self._eye * p_q.unsqueeze(-2).unsqueeze(-4)
+        if navier:
+            # values at the quad points, [..., c, C, Q]; as_d puts the
+            # component on the d axis of t: [..., 1, C, d, Q]
+            v = uc @ self._Phi
+            vl = cell_gather(u_lin * self.mask_u, self.cells, k).reshape(
+                u_lin.shape[:-dim - 1] + (dim, C, -1)) @ self._Phi
+            as_d = lambda w: w.transpose(-3, -2).unsqueeze(-4)
+            if mode == "jacobian":
+                t = t - (vl.unsqueeze(-2) * as_d(v)
+                         + v.unsqueeze(-2) * as_d(vl))
+            else:
+                t = t - v.unsqueeze(-2) * as_d(vl)
         ru = self._int_grad_phys(t)                # [..., c, C, A]
         ru = cell_scatter(ru.reshape(lead + (dim,) + self.cells
                                      + (k + 1,) * dim), self.cells, k)
         if self.weak_faces:
             ru_n, rp_n = self.apply_nitsche(u, p)
             ru, rp = ru + ru_n, rp + rp_n
+        if self._obstacle is not None:
+            ru_o, rp_o = self.apply_nitsche_obstacle(u, p)
+            ru, rp = ru + ru_o, rp + rp_o
+        if navier and self.delta0 != 0.0:
+            ru = ru + self.apply_cip(u, u_lin, self.delta0)
+        if navier and self.beta != 0.0 and self.free_faces:
+            ru = ru + self.apply_backflow(u, u_lin, self.beta)
         return ru * self.mask_u, rp
 
     def apply_flat(self, x: torch.Tensor) -> torch.Tensor:
@@ -541,3 +696,177 @@ class StokesOperator:
             Fpu[:, :, d0 * A:(d0 + 1) * A] = -np.transpose(blk, (0, 2, 1))
             out.append((d0, side, Fuu, as_t(Fup), as_t(Fpu)))
         return out
+
+    # -- the Navier modes' stabilizations ------------------------------------
+    def apply_cip(self, u: torch.Tensor, u_lin: torch.Tensor | None,
+                  delta0: float) -> torch.Tensor:
+        """CIP interior-face convective stabilization, the contribution to
+        ru (stfem_tpu ops/stokes.py::apply_cip; reference
+        do_face_integral_local, operators.h:1605-1633): on every interior
+        plane of each axis the jump of the normal derivative, penalized by
+        delta0 h_f^2 / (k^3 sqrt k) (b . n)^2 with b the linearization
+        velocity's trace from the left cell (u when u_lin is None) and the
+        other axes lumped on the nodes (stfem_tpu's quadrature).  Every
+        component at once; each plane's left and right layer terms are
+        overlap-added along the axis (no scatter-add)."""
+        dim, k = self.dim, self.u_degree
+        L = u.ndim - dim - 1
+        D_at1, D_at0, V_at1 = self._cip
+        pa = k ** 3 * np.sqrt(k)
+        b = u if u_lin is None else u_lin
+        ru = torch.zeros_like(u)
+        for d0 in range(dim):
+            if self.cells[d0] < 2:
+                continue
+            h0 = float(self.mesh.h[d0])
+            w_oth = float(np.prod([self.mesh.h[d] for d in range(dim)
+                                   if d != d0]))
+            hf = w_oth ** (1.0 / max(dim - 1, 1))
+            delta_K = delta0 * hf * hf / pa
+            # the cells along the axis as node rows [.., nc, k+1]; plane j
+            # lies between rows j and j+1
+            rows = torch.movedim(u, L + 1 + d0, -1).unfold(-1, k + 1, k)
+            jump = (rows[..., :-1, :] @ (D_at1 / h0)
+                    - rows[..., 1:, :] @ (D_at0 / h0))   # [.., c, *o, P]
+            brows = torch.movedim(b.select(L, d0), L + d0, -1).unfold(
+                -1, k + 1, k)
+            bn = brows[..., :-1, :] @ V_at1               # [.., *o, P]
+            t = (delta_K * bn * bn).unsqueeze(-dim - 1) * jump * w_oth
+            upd = torch.nn.functional.pad(
+                _overlap_1d(t[..., None] * (D_at1 / h0), k), (0, k)) \
+                + torch.nn.functional.pad(
+                    _overlap_1d(t[..., None] * (-D_at0 / h0), k), (k, 0))
+            ru = ru + torch.movedim(upd, -1, L + 1 + d0)
+        return ru * self.mask_u
+
+    def apply_backflow(self, u: torch.Tensor, u_lin: torch.Tensor | None,
+                       beta: float) -> torch.Tensor:
+        """Bertoglio-Caiazzo backflow value term on the do-nothing faces,
+        the contribution to ru: ru_c += int_F -0.5 beta b_c (u . n) v_c
+        with b the linearization velocity (u when u_lin is None)
+        (stfem_tpu ops/stokes.py::apply_backflow; reference
+        do_boundary_face_integral_local's outflow branch,
+        operators.h:1680-1714, whose gradient part is multiplied by a
+        literal 0)."""
+        dim = self.dim
+        L = u.ndim - dim - 1
+        b = u if u_lin is None else u_lin
+        Lb = b.ndim - dim - 1
+        ru = torch.zeros_like(u)
+        for f in self._free:
+            d0, cells_oth = f["d0"], f["cells_oth"]
+            eidx = 0 if f["side"] == 0 else -1
+            un = f["n_sign"] * self._trace_eval(
+                u.select(L + 1 + d0, eidx).select(L, d0), cells_oth)
+            bq = self._trace_eval(b.select(Lb + 1 + d0, eidx), cells_oth)
+            t = -0.5 * beta * bq * un.unsqueeze(-2 * dim + 1) * f["jxw"]
+            ru.select(L + 1 + d0, eidx).add_(self._trace_integrate(
+                t, cells_oth))
+        return ru * self.mask_u
+
+    # -- the weak (Nitsche) obstacle -----------------------------------------
+    def _obstacle_face_setup(self) -> dict | None:
+        """The Nitsche no-slip terms of the obstacle faces (stfem_tpu
+        ops/stokes.py::_obstacle_face_setup; the reference's boundary-face
+        integral, operators.h:1658-1751, on the curved cylinder too), as
+        dense per-face local matrices over the face quadrature: Nanson
+        normals n ds = detJ J^-T n_ref dxi, physical gradients through
+        J^-1 (J from face_jacobians), the face size the physical area^(1/
+        (dim-1)).  Built once in float64 NumPy, the faces of one (axis,
+        side) batched.  Returns None without obstacle faces, else
+        dict(E_uu [F, dim, dim, A, A], E_up [F, dim, A, n_ploc] in the
+        operator's dtype, uidx [F, A] flat dof-grid indices and pidx [F]
+        flat cell indices (NumPy), and the owner-computes tables of the
+        sums over faces: u_dofs, u_table over the flat (F, A) entries and
+        p_cells, p_table over the faces, utils/assembly.py::
+        layer_sources')."""
+        mesh, dim, k, nq = self.mesh, self.dim, self.u_degree, self.n_q
+        nu = self.viscosity
+        faces = obstacle_faces(mesh)
+        if not faces:
+            return None
+        A, m, Qf = (k + 1) ** dim, self.n_ploc, nq ** (dim - 1)
+        qw = gauss(nq)[1]
+        wq = np.ones(1)
+        for _ in range(dim - 1):
+            wq = (wq[:, None] * qw[None, :]).reshape(-1)
+        F = len(faces)
+        E_uu = np.zeros((F, dim, dim, A, A))
+        E_up = np.zeros((F, dim, A, m))
+        cflat = np.zeros(F, np.int64)
+        for d0 in range(dim):
+            for side in (0, 1):
+                sel = [i for i, (d, _, s) in enumerate(faces)
+                       if d == d0 and s == side]
+                if not sel:
+                    continue
+                cidx = np.asarray([faces[i][1] for i in sel])
+                cflat[sel] = np.ravel_multi_index(cidx.T, mesh.cells)
+                Phi, G, P = face_basis(dim, k, nq, self.p_degree, d0, side)
+                J = face_jacobians(mesh, cidx, d0, side, nq)
+                detJ = np.linalg.det(J)
+                Jinv = np.linalg.inv(J)                # [f, q, ref, phys]
+                n_sign = 1.0 if side == 1 else -1.0    # out of the fluid
+                wn = n_sign * detJ[..., None] * Jinv[:, :, d0, :]
+                nrm = np.linalg.norm(wn, axis=-1)
+                ds_w = nrm * wq                        # [f, q]
+                n_unit = wn / nrm[..., None]           # [f, q, dim]
+                Gn = np.einsum("eaq,fqed,fqd->faq", G, Jinv, n_unit)
+                hf = ds_w.sum(-1) ** (1.0 / max(dim - 1, 1))
+                mass = np.einsum("aq,fq,bq->fab", Phi, ds_w, Phi)
+                adj = np.einsum("aq,fbq,fq->fab", Phi, Gn, ds_w)
+                blk = (self.gamma2 / hf)[:, None, None, None, None] * \
+                    np.einsum("aq,fq,fqc,fqe,bq->fceab", Phi, ds_w, n_unit,
+                              n_unit, Phi)
+                blk[:, range(dim), range(dim)] += (
+                    (self.gamma1 / hf)[:, None, None] * mass - nu * adj
+                    - nu * adj.transpose(0, 2, 1))[:, None]
+                E_uu[sel] = blk
+                E_up[sel] = np.einsum("aq,fq,fqc,mq->fcam", Phi, ds_w,
+                                      n_unit, P)
+        uidx = cell_dof_indices(mesh.cells, k)[cflat]
+        u_dofs, u_table = layer_sources(list(uidx))
+        p_cells, p_table = layer_sources([[c] for c in cflat])
+        dev = self.device
+        as_i = lambda a: torch.as_tensor(a, device=dev)
+        return dict(E_uu=torch.as_tensor(E_uu, dtype=self.dtype, device=dev),
+                    E_up=torch.as_tensor(E_up, dtype=self.dtype, device=dev),
+                    uidx=uidx, pidx=cflat, uidx_t=as_i(uidx),
+                    pidx_t=as_i(cflat), u_dofs=as_i(u_dofs),
+                    u_table=as_i(u_table), p_cells=as_i(p_cells),
+                    p_table=as_i(p_table))
+
+    def apply_nitsche_obstacle(self, u: torch.Tensor, p: torch.Tensor):
+        """The weak no-slip obstacle's contributions (ru_add, rp_add), the
+        weak form of apply_nitsche with g = 0 on the (curved) obstacle
+        faces: gather each face's cell values, the local matvec, and an
+        owner-computes sum over the faces that meet a dof or a cell."""
+        ob = self._obstacle
+        dim = self.dim
+        L = u.ndim - dim - 1
+        u_flat = u.reshape(u.shape[:L + 1] + (-1,))
+        u_loc = u_flat[..., ob["uidx_t"]]                 # [..., dim, F, A]
+        p_flat = p.reshape(p.shape[:L] + (-1, self.n_ploc))
+        p_loc = p_flat[..., ob["pidx_t"], :]              # [..., F, m]
+        ru_loc = (torch.einsum("fceab,...efb->...cfa", ob["E_uu"], u_loc)
+                  + torch.einsum("fcam,...fm->...cfa", ob["E_up"], p_loc))
+        rp_loc = -torch.einsum("fcam,...cfa->...fm", ob["E_up"], u_loc)
+        ru = torch.zeros_like(u_flat)
+        ru[..., ob["u_dofs"]] = torch.movedim(layer_sum(
+            [torch.movedim(ru_loc.flatten(-2), -1, 0)], ob["u_table"]), 0, -1)
+        rp = torch.zeros_like(p_flat)
+        rp[..., ob["p_cells"], :] = torch.movedim(layer_sum(
+            [torch.movedim(rp_loc, -2, 0)], ob["p_table"]), 0, -2)
+        return ru.reshape(u.shape), rp.reshape(p.shape)
+
+    def obstacle_cell_terms(self):
+        """The obstacle's Nitsche terms summed per active cell (once, an
+        owner-computes sum over its faces): (cells [n] int64 tensor,
+        E_uu [n, dim, dim, A, A], E_up [n, dim, A, n_ploc]) for the
+        element route and the Vanka patches; None without a weak
+        obstacle."""
+        ob = self._obstacle
+        if ob is None:
+            return None
+        return (ob["p_cells"], layer_sum([ob["E_uu"]], ob["p_table"]),
+                layer_sum([ob["E_up"]], ob["p_table"]))

@@ -534,9 +534,11 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
     fe_degree_min_space (velocity is always pressure + 1, so it never drops
     below Q2), the time k-ladder down to fe_degree_min, the tau ladder down
     to n_timesteps_at_once_min, ordered by get_mg_sequence; block Vanka
-    with the per-step factorization (and the weak_faces' Nitsche terms) on
-    every Relaxation or Chebyshev level, omega or (theta, delta) from the
-    20-step power estimate on the flat mask and params.smoothing_range;
+    with the per-step factorization (and the weak_faces' and, with
+    weak_obstacle, the obstacle's Nitsche terms, on every level's
+    coarsened mask) on every Relaxation or Chebyshev level, omega or
+    (theta, delta) from the 20-step power estimate on the flat mask and
+    params.smoothing_range;
     params' smoothing steps, `variable` smoothing and Identity levels.
     The coarse level is solved by the assembled FP64 pseudo-inverse
     whenever it has at most GMG.DIRECT_COARSE_MAX unknowns, else by
@@ -546,16 +548,15 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
     and solution.  The mesh ladder
     keeps the fine mesh's cell mask (strided), base axis steps and vertex
     map.  The level operators take StokesSystemMatrix's "element" route.
-    FE_Q pressure and the weak obstacle are not ported and raise."""
+    FE_Q pressure is not ported and raises."""
     from ..blocks import BlockSlice
     from ..ops.stokes import StokesOperator
     from ..system_stokes import StokesSystemMatrix
     from ..time.tables import get_fe_time_weights_stokes
     from .stokes_level import StokesSpaceTransfer, StokesVanka
 
-    if not dg_pressure or weak_obstacle:
-        raise NotImplementedError("FE_Q pressure and the weak obstacle are "
-                                  "not ported")
+    if not dg_pressure:
+        raise NotImplementedError("FE_Q pressure is not ported")
     params = params or GMGParams()
     device = torch.device(device)
     if fe_degree_min is None:
@@ -625,7 +626,8 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
             u_deg = key[1]
             S = StokesOperator(meshes[key[0]], u_deg, u_deg - 1, u_deg + 1,
                                viscosity, dtype=dtype, device=device,
-                               weak_faces=weak_faces, free_faces=free_faces)
+                               weak_faces=weak_faces, free_faces=free_faces,
+                               weak_obstacle=weak_obstacle)
             Mu = LaplaceMassOperator(meshes[key[0]], u_deg, u_deg + 1, 1.0,
                                      0.0, dtype=dtype, device=device,
                                      mask=S.mask_u_np)

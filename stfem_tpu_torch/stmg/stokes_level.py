@@ -10,7 +10,8 @@ mixes the leading time axis of the flat vector as it is.  The DGP-pressure
 case with strong, Nitsche or free faces is ported, on uniform, masked,
 non-uniform and mapped meshes (per-cell element matrices there; a removed
 cell's pressure modes have zero rows, which the patch inverse regularizes
-to the identity); the weak obstacle and FE_Q pressure are not.
+to the identity), with the strong or the weak obstacle; FE_Q pressure is
+not.
 """
 from __future__ import annotations
 
@@ -64,6 +65,58 @@ def _band_flat(op: LaplaceMassOperator,
     band = band.reshape(op.dof_shape + (n_off,))
     band[..., (n_off - 1) // 2] += 1.0 - op.mask
     return band.reshape(-1)
+
+
+def patch_face_terms(S: StokesOperator, dtype):
+    """The Nitsche face and weak-obstacle terms of the Vanka patches
+    (stfem_tpu stokes_level.py:100-150), on each face cell's element
+    matrices: (face_uu, E_up, E_pu, off).  face_uu: per component the
+    [C, A, A] u-u terms (the normal component has the extra gamma2
+    penalty), or None without faces, for the banded assembly, so that every
+    patch that shares a face dof sees the same rows; E_up [C, dim A, m]
+    and E_pu [C, m, dim A]: the element couplings plus the faces'; off:
+    (cells, [n, dim, A, dim, A]) the obstacle's cross-component gamma2
+    n_c n_e blocks, cell-local, or None.  A cell's terms are summed over
+    the layers and obstacle faces it lies in by an owner-computes sum
+    (utils/assembly.py::layer_sources), not by a scatter-add."""
+    dim, C, dev = S.dim, int(np.prod(S.cells)), S.device
+    A = (S.u_degree + 1) ** dim
+    _, E_up, E_pu = S.element_matrices()
+    E_up, E_pu = E_up.to(dtype), E_pu.to(dtype)
+    faces = S.face_element_matrices()
+    obstacle = S.obstacle_cell_terms()
+    if not faces and obstacle is None:
+        return None, E_up, E_pu, None
+    cell_grid = np.arange(C).reshape(S.cells)
+    layers = [cell_grid[S._plane(d0, side)] for d0, side, *_ in faces]
+    parts_uu = [[f[2][c] for f in faces] for c in range(dim)]
+    parts_up = [f[3] for f in faces]
+    parts_pu = [f[4] for f in faces]
+    off = None
+    if obstacle is not None:
+        oc, Ob_uu, Ob_up = obstacle
+        layers.append(oc.cpu().numpy())
+        for c in range(dim):
+            parts_uu[c].append(Ob_uu[:, c, c])
+        Ob_up = Ob_up.reshape(len(oc), dim * A, -1)
+        parts_up.append(Ob_up)
+        parts_pu.append(-Ob_up.transpose(1, 2))
+        eye = torch.eye(dim, dtype=torch.bool, device=dev)[:, :, None, None]
+        off = (oc, torch.where(eye, 0.0, Ob_uu).permute(0, 1, 3, 2, 4).to(
+            dtype))
+    fc, table = layer_sources(layers)
+    fc = torch.as_tensor(fc, device=dev)
+    table = torch.as_tensor(table, device=dev)
+
+    def on_layers(base, parts):
+        """base plus the per-layer parts summed over the layers."""
+        out = base.clone()
+        out[fc] = out[fc] + layer_sum([p.to(dtype) for p in parts], table)
+        return out
+
+    zero = torch.zeros((C, A, A), dtype=dtype, device=dev)
+    return ([on_layers(zero, parts_uu[c]) for c in range(dim)],
+            on_layers(E_up, parts_up), on_layers(E_pu, parts_pu), off)
 
 
 class StokesVanka:
@@ -134,43 +187,19 @@ class StokesVanka:
             if ok:
                 self.n_steps = n_steps
 
-        # Nitsche face terms, added onto the boundary-layer cells' element
-        # matrices before the assembly (stfem_tpu stokes_level.py:100-121):
-        # per-component u-u blocks (the normal component has the extra
-        # gamma2 penalty), and the u-p / p-u couplings
-        face_uu = [None] * dim
-        _, E_up, E_pu = S.element_matrices()
-        E_up, E_pu = E_up.to(dtype), E_pu.to(dtype)
-        if S.weak_faces:
-            faces = S.face_element_matrices()
-            cell_grid = np.arange(C).reshape(cells)
-            fc, table = layer_sources([cell_grid[S._plane(d0, side)]
-                                       for d0, side, *_ in faces])
-            fc = torch.as_tensor(fc, device=dev)
-            table = torch.as_tensor(table, device=dev)
-
-            def on_layers(base, parts):
-                """base plus the per-layer parts summed over the layers
-                (owner-computes, utils/assembly.py::layer_sources)."""
-                out = base.clone()
-                out[fc] = out[fc] + layer_sum([p.to(dtype) for p in parts],
-                                              table)
-                return out
-
-            zero = torch.zeros((C, A_s, A_s), dtype=dtype, device=dev)
-            face_uu = [on_layers(zero, [f[2][c] for f in faces])
-                       for c in range(dim)]
-            E_up = on_layers(E_up, [f[3] for f in faces])
-            E_pu = on_layers(E_pu, [f[4] for f in faces])
+        face_uu, E_up, E_pu, Kuu_off = patch_face_terms(S, dtype)
         Muu_s = _band_flat(mass)[fidx]
         # block-diagonal over the components, rows/cols component-major
         Kuu = torch.zeros((C, dim, A_s, dim, A_s), dtype=dtype, device=dev)
         Muu = torch.zeros_like(Kuu)
-        Kuu_s = None if S.weak_faces else _band_flat(lap)[fidx]
+        Kuu_s = None if face_uu is not None else _band_flat(lap)[fidx]
         for c in range(dim):
             Kuu[:, c, :, c, :] = (Kuu_s if Kuu_s is not None else
                                   _band_flat(lap, face_uu[c])[fidx])
             Muu[:, c, :, c, :] = Muu_s
+        if Kuu_off is not None:
+            oc, off = Kuu_off              # each obstacle cell once
+            Kuu[oc] = Kuu[oc] + off
         Kuu, Muu = Kuu.reshape(C, A_u, A_u), Muu.reshape(C, A_u, A_u)
 
         def assemble(A_tab, B_tab, nb):
@@ -225,6 +254,15 @@ class StokesVanka:
         else:
             B = assemble(Alpha_st, Beta_st, n_blocks) * vrows(n_blocks)
             self.Binv, self.Kappa = invert(B), None
+        if S.weak_obstacle:
+            # the removed cells' patches must not update the (free)
+            # obstacle-boundary dofs: their rows are degenerate (zero
+            # volume) and the regularized inverses would inject noise
+            act = torch.as_tensor(S.mesh.cell_mask.reshape(-1), dtype=dtype,
+                                  device=dev)[:, None, None]
+            self.Binv = self.Binv * act
+            if self.Kappa is not None:
+                self.Kappa = self.Kappa * act
 
         # patch order <-> the per-cell [time position, (u comps, p)] layout
         nt = blk.n_timedofs

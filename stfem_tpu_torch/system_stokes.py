@@ -32,9 +32,9 @@ class StokesSystemMatrix:
     one gather of every cell's local (u, p) vector from the flat layout,
     one matmul with the cell's element matrices (the Stokes and velocity
     mass matrices side by side: one pair for a uniform mesh, one per cell
-    otherwise, a batched matmul), the time mixing,
-    the Nitsche face cells' own matrices (each face cell's summed over its
-    faces at setup), and the overlap-add back (in
+    otherwise, a batched matmul), the time mixing, the Nitsche face
+    cells' and the weak obstacle's cells' own matrices (each face cell's
+    summed over its faces at setup), and the overlap-add back (in
     cell_scatter's order): the same operator to rounding, in ~15 launches
     where the sum-factorised applies take ~230 (~380 with Nitsche faces),
     for the host-bound V-cycle's level operators."""
@@ -109,9 +109,11 @@ class StokesSystemMatrix:
                            torch.ones(S.n_p, dtype=self.dtype,
                                       device=self.device)])
         self._mloc = mflat[self._lidx].reshape(lidx.shape)      # [C, P]
-        # Nitsche faces: every face cell's [P, P] face matrix, summed over
-        # the layers it lies in (a corner cell lies in two) once, here, by
-        # an owner-computes sum (utils/assembly.py::layer_sources)
+        # Nitsche faces and the weak obstacle: every face cell's [P, P]
+        # face matrix, summed over the layers it lies in (a corner cell
+        # lies in two; an obstacle cell's faces are summed per cell by
+        # S.obstacle_cell_terms) once, here, by an owner-computes sum
+        # (utils/assembly.py::layer_sources)
         parts, layers = [], []
         cell_grid = np.arange(lidx.shape[0]).reshape(S.cells)
         for d0, side, Fuu, Fup, Fpu in S.face_element_matrices():
@@ -123,6 +125,18 @@ class StokesSystemMatrix:
             F[:, dim * A:, :dim * A] = Fpu
             parts.append(F)
             layers.append(cell_grid[S._plane(d0, side)].reshape(-1))
+        obstacle = S.obstacle_cell_terms()
+        if obstacle is not None:
+            cells, E_uu, E_up = obstacle
+            n = len(cells)
+            E_up = E_up.reshape(n, dim * A, -1)
+            F = torch.zeros((n, P, P), dtype=self.dtype, device=self.device)
+            F[:, :dim * A, :dim * A] = E_uu.permute(0, 1, 3, 2, 4).reshape(
+                n, dim * A, dim * A)
+            F[:, :dim * A, dim * A:] = E_up
+            F[:, dim * A:, :dim * A] = -E_up.transpose(1, 2)
+            parts.append(F)
+            layers.append(cells.cpu().numpy())
         self._face_cells = self._face_F = None
         if parts:
             fc, table = layer_sources(layers)
@@ -155,9 +169,12 @@ class StokesSystemMatrix:
     def vmult(self, x: torch.Tensor, u_lin: torch.Tensor | None = None,
               mode: str = "none", mask_input: bool = True) -> torch.Tensor:
         """x: [T, ..., n_u + n_p] (axes between the time axis and the flat
-        dofs are batch).  mode other than "none" (Navier-Stokes) raises in
-        the Stokes operator; mask_input=False reads the eliminated velocity
-        dofs (the strong Dirichlet lift)."""
+        dofs are batch).  For Navier-Stokes pass u_lin ([T, dim, *grid])
+        and mode "jacobian" or "form" (reference SystemMatrixStokes
+        set_linearization_data + OperatorMode, operators.h:471-500): they
+        go through the Stokes operator's apply, on either route;
+        mask_input=False reads the eliminated velocity dofs (the strong
+        Dirichlet lift)."""
         if self.precision is not None:
             with full_precision():
                 return self._vmult_impl(x, u_lin, mode, mask_input)

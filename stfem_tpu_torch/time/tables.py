@@ -1,10 +1,9 @@
 """Variational time-stepping weight tables.
 
 Dense (tiny) matrices defining the CGP(r) / DG(r) time discretizations and
-their multi-timestep block assembly and the Schur-reduced wave tables
-and the two-variable Stokes tables (stfem_tpu's extrapolation tables are
-not ported yet).  All
-NumPy float64, computed at setup time;
+their multi-timestep block assembly, the Schur-reduced wave tables, the
+two-variable Stokes tables and the nonlinear extrapolation (Picard
+predictor) tables.  All NumPy float64, computed at setup time;
 parity oracle is the reference's golden file tests/tp_02.output
 (reference: include/fe_time.h:157-744, include/fe_time.cc).
 
@@ -24,7 +23,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from ..types import TimeStepType, MGType
+from ..types import MGType, NonlinearExtrapolation, TimeStepType
 from .quadrature import (LagrangeBasis, gauss, gauss_lobatto,
                          gauss_radau_right)
 
@@ -295,6 +294,57 @@ def get_fe_time_weights_wave_sequence(type_: TimeStepType,
                                       poly_time_sequence)
     return [get_fe_time_weights_wave(type_, a, b, g, z)
             for (a, b, g, z) in fo]
+
+
+def construct_extrapolation_matrix(type_: TimeStepType, r: int, shift: float,
+                                   gradient_penalty: float,
+                                   filter_strength: float,
+                                   extrapolate_constant: bool = False
+                                   ) -> np.ndarray:
+    """Predictor matrix evaluating the previous slab's polynomial at shifted
+    times, re-expanded in the current basis, with optional gradient penalty
+    (I + g D^T D) and modal-index filter 1/(1 + s i^2)
+    (stfem_tpu time/tables.py::construct_extrapolation_matrix; reference
+    include/fe_time.h:530-616).  Columns: the previous slab's start value,
+    then its time dofs (DG); rows: the new slab's time dofs."""
+    old_n_dofs = r + 2 if type_ == TimeStepType.DG else r + 1
+    if extrapolate_constant:
+        new_n_dofs = r + 1 if type_ == TimeStepType.DG else r
+        M = np.zeros((new_n_dofs, old_n_dofs))
+        M[:, old_n_dofs - 1] = 1.0
+        return M
+    new_basis = get_time_basis(type_, r)
+    new_points, _ = get_time_quad(type_, r)
+    old_points = (np.concatenate(([0.0], new_points))
+                  if type_ == TimeStepType.DG else new_points)
+    M_interp = LagrangeBasis(old_points).eval_matrix(new_points + shift)
+    M_extrap = np.linalg.solve(new_basis.eval_matrix(new_points), M_interp)
+    # derivative of the new basis at the first r+1 old points (the
+    # reference's build_derivative_matrix uses basis.size() points)
+    D = new_basis.deriv_matrix(old_points[: r + 1])
+    G = np.eye(r + 1) + gradient_penalty * (D.T @ D)
+    F = np.diag(1.0 / (1.0 + filter_strength * np.arange(r + 1) ** 2))
+    M_extrap = F @ (G @ M_extrap)
+    return M_extrap if type_ == TimeStepType.DG else M_extrap[1:, :]
+
+
+def get_extrapolation_matrix(type_: TimeStepType,
+                             nonlinear_extra: NonlinearExtrapolation, r: int,
+                             shift: float, gradient_penalty: float,
+                             filter_strength: float) -> np.ndarray:
+    """The predictor of a NonlinearExtrapolation choice (reference
+    include/fe_time.h:618-641): Auto is Constant for r <= 1, else
+    Polynomial; LeastSquares has no implementation (ValueError)."""
+    if nonlinear_extra == NonlinearExtrapolation.Auto:
+        constant = r <= 1
+    elif nonlinear_extra == NonlinearExtrapolation.Constant:
+        constant = True
+    elif nonlinear_extra == NonlinearExtrapolation.Polynomial:
+        constant = False
+    else:
+        raise ValueError(f"no implementation for {nonlinear_extra}")
+    return construct_extrapolation_matrix(type_, r, shift, gradient_penalty,
+                                          filter_strength, constant)
 
 
 def get_fe_time_weights_stokes(type_: TimeStepType, r: int,

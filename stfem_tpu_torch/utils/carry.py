@@ -116,7 +116,9 @@ def load_gridsumfac(matrix, Wb=None, Wa=None) -> None:
 
 def load_stokes_vanka(vanka, Binv=None, Kappa=None) -> None:
     """StokesVanka patch factors (per-step or dense inverse, and the step
-    coupling of the per-step factorization)."""
+    coupling of the per-step factorization), with Nitsche faces and the
+    weak obstacle as well: both packages keep the same patch layout and
+    zero a weak-obstacle level's removed-cell factors."""
     for name, a in (("Binv", Binv), ("Kappa", Kappa)):
         if a is not None:
             ref = getattr(vanka, name)

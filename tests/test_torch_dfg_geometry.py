@@ -246,28 +246,32 @@ def test_functionals(grid):
 
 
 def test_still_raising():
-    """The weak obstacle, the Navier modes and FE_Q pressure are not
-    ported: they raise.  The Q1-interpolated vertex map is ported: it maps
-    the vertex grid (its parity is tests/test_torch_distort.py's)."""
+    """FE_Q pressure is not ported: it raises.  The weak obstacle and the
+    Navier modes, which raised until they were ported, build and apply
+    (their parity is tests/test_torch_weak_obstacle.py's and
+    tests/test_torch_navier.py's); an unknown operator mode raises.  The
+    Q1-interpolated vertex map is ported: it maps the vertex grid (its
+    parity is tests/test_torch_distort.py's)."""
     from stfem_tpu_torch.stmg.gmg import build_stmg_stokes
     _, tm = GRIDS["square"](0)
     with pytest.raises(NotImplementedError):
-        StokesOperator(tm, 2, 1, 3, NU, device="cpu", weak_obstacle=True)
-    with pytest.raises(NotImplementedError):
         StokesOperator(tm, 2, 1, 3, NU, device="cpu", dg_pressure=False)
+    with pytest.raises(NotImplementedError):
+        build_stmg_stokes(tm, 1, TimeStepType.DG, 1, 1 / 16, device="cpu",
+                          dg_pressure=False)
     S = StokesOperator(tm, 2, 1, 3, NU, device="cpu", weak_faces=WEAK_2D,
-                       free_faces=FREE)
-    u = torch.zeros((2,) + S.dof_shape_u, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        S.apply(u, torch.zeros(S.p_shape, dtype=torch.float64), mode="form",
-                u_lin=u)
-    for kw in ({"weak_obstacle": True}, {"dg_pressure": False}):
-        with pytest.raises(NotImplementedError):
-            build_stmg_stokes(tm, 1, TimeStepType.DG, 1, 1 / 16,
-                              device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        tstokes.run_dfg_square(refinement=0, n_slabs=1, weak_obstacle=True,
-                               device="cpu")
+                       free_faces=FREE, weak_obstacle=True)
+    u = torch.ones((2,) + S.dof_shape_u, dtype=torch.float64)
+    p = torch.zeros(S.p_shape, dtype=torch.float64)
+    for mode in ("none", "jacobian", "form"):
+        ru, rp = S.apply(u, p, mode=mode, u_lin=u)
+        assert torch.isfinite(ru).all() and torch.isfinite(rp).all()
+    with pytest.raises(ValueError):
+        S.apply(u, p, mode="newton", u_lin=u)
+    gmg = build_stmg_stokes(tm, 1, TimeStepType.DG, 1, 1 / 16,
+                            device="cpu", weak_faces=WEAK_2D,
+                            free_faces=FREE, weak_obstacle=True)
+    assert all(lvl.matrix.S.weak_obstacle for lvl in gmg.levels)
     q1 = StructuredMesh([1, 1], [0.0, 0.0], [1.0, 1.0],
                         vertex_map=lambda x: 2.0 * x)
     np.testing.assert_array_equal(q1.vertices, [[[0, 0], [0, 2]],
