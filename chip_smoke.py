@@ -128,15 +128,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and delta and one V-cycle under the profiler; K1 and K5 must launch;
      the V-cycle's wall with the GMRES coarse solve's host read-back
      against the same V-cycle with it replayed on the device (also at
-     32^3 in (b));
-     (b) tp_01 convergence, heat DG(1) at 16^3 and 32^3 through run_config:
-     per refinement the slab walls, iterations, DoF/s, setup and launches,
-     each norm within 1e-4 relative of phase 11b's Relaxation run (two
-     preconditioners stopped at rel 1e-12 leave different iterates), K1
-     and both K4 chains launching at 32^3; the GMRES coarse solve runs on
-     the 1-cell Q2 level (one free dof a block: GMRES breaks down after
-     two iterations and the minimum-norm solve is exact); (c) the 256^2
-     lid for 1 slab (2 until phase 16): per slab the iterations, wall,
+     16^3 in (b));
+     (b) tp_01 convergence, heat DG(1) at 16^3 (32^3 too until phase 17)
+     through run_config: the slab walls, iterations, DoF/s, setup and
+     launches, each norm within 1e-4 relative of phase 11b's Relaxation
+     run (two preconditioners stopped at rel 1e-12 leave different
+     iterates), K1 and both K4 chains launching; the GMRES coarse solve
+     runs on the 1-cell Q2 level (one free dof a block: GMRES breaks down
+     after two iterations and the minimum-norm solve is exact); (c) the
+     256^2 lid for 1 slab (2 until phase 16): per slab the iterations, wall,
      DoF/s and the true FP64 residual within 2x of the stop test, u on
      the free dofs and p (up to the enclosed flow's constant) within 1e-7
      of phase 12c's (of their largest entry) and the functionals rows
@@ -146,7 +146,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the defect is zero) and the weak lid at refinement 3 (2 slabs) with
      (c)'s on the card against the CPU within 1e-8, iterations within 1.
      launches_by_path gains "chebyshev practical", "chebyshev
-     convergence" (the 16^3/32^3 sweep) and "chebyshev stokes" (the 256^2
+     convergence" (the 16^3 sweep) and "chebyshev stokes" (the 256^2
      lid), each without (d)'s launches.
  15. the distorted-mesh heat path (drivers/heat.py::run_heat_cycle with
      distort_grid, the "cell" operator route, the cell-mode Vanka on
@@ -169,8 +169,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      omegas (its own printed beside them), one float32 V-cycle within
      1e-5, equal FGMRES iterations, the solutions and l2 norms within
      1e-10; (d) the bench
-     Stokes hierarchy built twice, one V-cycle of each bitwise equal,
-     and bench_stokes once more with phase 9's first-slab V-cycles.
+     Stokes hierarchy and phase 17's FE_Q hierarchy at 32^2 each built
+     twice, one V-cycle of each bitwise equal, and bench_stokes once more
+     with phase 9's first-slab V-cycles.
  16. nonlinear and weak-obstacle Stokes (drivers/stokes.py::
      run_navier_stokes_cycle: Picard / Oseen solves in the operator's
      "form" mode; run_dfg_square(weak_obstacle=True): the Nitsche
@@ -195,6 +196,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      slab) on the card against the CPU within 1e-8, iterations within 1,
      and the weak square twice on the card, bitwise.  The paths run none
      of K1-K5 (launches_by_path "navier" and "weak obstacle": zeros).
+ 17. the continuous (FE_Q, Taylor-Hood Q2/Q1) pressure and strong
+     inhomogeneous Dirichlet heat: (a) drivers/stokes.py::
+     run_stokes_cycle(dg_pressure=False, nitsche_boundary=True), DG(1),
+     4 steps a slab, refinements 2-6 (4^2..64^2; 300,056 unknowns a slab
+     at 64^2), stfem_tpu's test_feq_pressure_stmg V-cycle: per
+     refinement the iterations a slab, slab walls, setup with the patch
+     pseudo-inverses' share, u and p L2-L2 errors and one V-cycle's
+     launches, the rates between whole refinements (u > 2.0, p > 1.5);
+     (b) refinements 1 and 2, one step at once, the card's iterations and
+     norms the CPU's (1e-8), the CPU's stfem_tpu's (FEQ_CPU);
+     (c) run_heat_cycle with tp_01's 3D heat DG(1) discretisation on
+     [0.25, 1.25]^3 with heat "solution 2" as dirichlet_g and the lift,
+     4^3..32^3: per slab a true FP64 residual against the lifted rhs
+     within 2x of the stop test, the constrained dofs equal to g (1e-12),
+     the L2-L2 rate >= 1.8, K1-K4 launching at the finest refinement.
+     FEQ_CUTS and DIRICHLET_CUTS list the refinements whose march is cut.
 Then it prints the smoke's total wall, the nvidia-smi line, a JSON line
 describing the kernels (launches over all main paths and by path), and,
 last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -977,7 +994,7 @@ def chebyshev_phase(wrappers, dev, relaxation, lid) -> dict:
     """Phase 14: the solver options on the card -- the Chebyshev smoother
     and the GMRES coarse solve through the applications' entry points on
     the committed *_chebyshev configs: (a) tp_01 practical mode at 16^3,
-    (b) tp_01 convergence, heat DG(1) at 16^3 and 32^3, its norms against
+    (b) tp_01 convergence, heat DG(1) at 16^3, its norms against
     phase 11b's Relaxation run (`relaxation`, by (name, ref)), (c) the
     256^2 lid for 1 slab against phase 12c's first (`lid`), (d) small
     cells on the card against the CPU.  Returns the launches of every
@@ -1004,7 +1021,8 @@ def chebyshev_phase(wrappers, dev, relaxation, lid) -> dict:
         raise AssertionError("chebyshev practical: K1 or K5 never ran")
     by_path["chebyshev practical"] = counts
 
-    # (b) tp_01 convergence, heat DG(1), refinements 4-5 (16^3, 32^3)
+    # (b) tp_01 convergence, heat DG(1), refinement 4 (16^3; 32^3 cut to
+    #     keep the smoke under 1000 s when phase 17 came)
     for w in wrappers.values():
         w.launches = 0
     total = dict.fromkeys(wrappers, 0)
@@ -1016,7 +1034,7 @@ def chebyshev_phase(wrappers, dev, relaxation, lid) -> dict:
 
     p = Parameters.parse(
         str(tp01.CONFIGS / "tp01_convergence_3d_heat_dg1_chebyshev.json"), 3)
-    p.refinement, p.n_ref_cycles = 4, 2
+    p.refinement, p.n_ref_cycles = 4, 1
     results, rows, last, wall = _sweep(p, "heat_dg1 chebyshev", wrappers,
                                        reset)
     worst = 0.0
@@ -1038,20 +1056,20 @@ def chebyshev_phase(wrappers, dev, relaxation, lid) -> dict:
           f"{_vanka_levels(gmg)}; {_smoother_levels(gmg)}; coarse solve "
           f"{gmg.coarse} ({gmg.coarse_maxiter} iterations) on level 0 of "
           f"{lvl0.n_blocks} x {int(np.prod(lvl0.dof_shape))} unknowns, "
-          f"{free0} free per block; raw launches at 32^3 {raw}; sweep wall "
+          f"{free0} free per block; raw launches at 16^3 {raw}; sweep wall "
           f"{wall:.1f} s", flush=True)
     if worst > 1e-4:
         raise AssertionError("tp01 heat_dg1 chebyshev: norms off phase 11b")
     if not (raw["time_solve"] and raw["chain_down"] and raw["chain_up"]):
         raise AssertionError("tp01 heat_dg1 chebyshev: K1 or K4 never ran "
-                             "at 32^3")
+                             "at 16^3")
     reset()
     by_path["chebyshev convergence"] = dict(total)
     top = gmg.levels[-1]
     v = torch.randn((top.n_blocks,) + tuple(top.dof_shape),
                     generator=torch.Generator(device="cuda").manual_seed(0),
                     dtype=torch.float64, device="cuda")
-    _readback_ab(gmg, v / v.norm(), "tp01 3D heat_dg1 chebyshev 32^3")
+    _readback_ab(gmg, v / v.norm(), "tp01 3D heat_dg1 chebyshev 16^3")
     del results, last, gmg, lvl0, top, v
     torch.cuda.empty_cache()
 
@@ -1450,8 +1468,9 @@ def distorted_card_cpu(dev, cycle) -> None:
 
 def stokes_repeat_check(dev, gen, first_iters) -> None:
     """Phase 15(d): the bench Stokes hierarchy built twice, one V-cycle of
-    each on the same vector bitwise equal, with equal level parameters;
-    then bench_stokes once more: its first timed slab's V-cycles against
+    each on the same vector bitwise equal, with equal level parameters,
+    and the same for phase 17(a)'s FE_Q hierarchy at 32^2; then
+    bench_stokes once more: its first timed slab's V-cycles against
     phase 9's (`first_iters`)."""
     import torch
     from stfem_tpu_torch import bench_stokes
@@ -1474,12 +1493,33 @@ def stokes_repeat_check(dev, gen, first_iters) -> None:
                        for lvl in gmg.levels])
         del gmg
     same = bool(torch.equal(outs[0], outs[1])) and params[0] == params[1]
+    # an FE_Q hierarchy (phase 17(a)'s at 32^2: the shared pressure nodes'
+    # owner-computes sums and the patch pseudo-inverses) twice as well
+    fmesh = StructuredMesh([1, 1], [0.0, 0.0], [1.0, 1.0], refinement=5)
+    fouts, fparams = [], []
+    for _ in range(2):
+        gmg = build_stmg_stokes(
+            fmesh, 1, TimeStepType.DG, 4, 1.0 / 64,
+            params=GMGParams(smoothing_range=5.0), fe_degree_min=1,
+            space_time_level_first=False, dg_pressure=False,
+            weak_faces=((0, 0), (0, 1), (1, 0), (1, 1)), device=dev)
+        if not fouts:
+            fv = torch.randn((gmg.levels[-1].n_blocks,)
+                             + gmg.levels[-1].dof_shape, generator=gen,
+                             device=dev)
+        fouts.append(gmg.vmult(fv))
+        fparams.append([getattr(lvl.smoother, "omega", None)
+                        for lvl in gmg.levels])
+        del gmg
+    fsame = (bool(torch.equal(fouts[0], fouts[1]))
+             and fparams[0] == fparams[1])
     info, _ = bench_stokes.run(8, 8, n_slabs=2, device="cuda")
     print(f"# stokes repeat: two builds of the bench hierarchy, one V-cycle "
-          f"each: bitwise equal {same} (omegas {params[0]}); bench_stokes "
-          f"again: V-cycles/slab {info['iters']} against phase 9's "
-          f"{first_iters}", flush=True)
-    if not (same and info["iters"][0] == first_iters[0]):
+          f"each: bitwise equal {same} (omegas {params[0]}); two builds of "
+          f"the FE_Q 32^2 hierarchy: bitwise equal {fsame} (omegas "
+          f"{fparams[0]}); bench_stokes again: V-cycles/slab {info['iters']} "
+          f"against phase 9's {first_iters}", flush=True)
+    if not (same and fsame and info["iters"][0] == first_iters[0]):
         raise AssertionError("stokes: two runs of the same code differ")
 
 
@@ -1730,6 +1770,297 @@ def navier_obstacle_phase(wrappers, dev, strong) -> dict:
           f"port kernel (stfem_tpu's counterparts reach no Pallas call); "
           f"phase wall {time.time() - t_phase:.1f} s", flush=True)
     return by_path
+
+
+# phase 17's cuts of the march (refinement: slabs); every other
+# refinement runs whole
+# (16^2: 2 of 8 slabs, 32^2: 1 of 16, 64^2: 1 of 32; 16^3: 2 of 16,
+# 32^3: 1 of 32)
+FEQ_CUTS = {4: 2, 5: 1, 6: 1}
+DIRICHLET_CUTS = {4: 2, 5: 1}
+
+# stfem_tpu's FE_Q Stokes cycle on the CPU with x64 (its tests' setting):
+# DG(1), one step at once, Nitsche faces on every wall,
+# tests/test_stokes.py:530-555's factory; per refinement the FGMRES
+# iterations (the total of the cycle) and the u and p L2-L2 errors
+FEQ_CPU = {1: (68, 1.2606340542842863e-02, 3.585092942255120e-02),
+           2: (221, 2.7992780153705487e-03, 9.935306298969764e-03)}
+
+
+def _feq_factory(ctx):
+    """stfem_tpu's test_feq_pressure_stmg factory (tests/test_stokes.py:
+    536-544) on the cycle's device."""
+    from stfem_tpu_torch.stmg.gmg import GMGParams, build_stmg_stokes
+    return build_stmg_stokes(
+        ctx["mesh"], ctx["fe_degree"], ctx["type_"],
+        ctx["n_timesteps_at_once"], ctx["time_step"],
+        viscosity=ctx["viscosity"], params=GMGParams(smoothing_range=5.0),
+        fe_degree_min=1, space_time_level_first=False,
+        dg_pressure=ctx["dg_pressure"], weak_faces=ctx["weak_faces"],
+        device=ctx["device"])
+
+
+class _PinvClock:
+    """Times torch.linalg.pinv (the FE_Q Vanka's patch pseudo-inverses)
+    while it is entered: each call synchronized on both sides."""
+
+    def __enter__(self):
+        import torch
+        self.orig, self.seconds, self.calls = torch.linalg.pinv, 0.0, 0
+
+        sync = (torch.cuda.synchronize if torch.cuda.is_available()
+                else lambda: None)
+
+        def timed(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = self.orig(*a, **k)
+            sync()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        torch.linalg.pinv = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.linalg.pinv = self.orig
+
+
+def feq_phase(wrappers, dev, refinements=(2, 3, 4, 5, 6),
+              slabs_max=None) -> dict:
+    """Phase 17(a, b): the continuous (FE_Q, Taylor-Hood Q2/Q1) pressure
+    through the Stokes stack.  (a) run_stokes_cycle(dg_pressure=False,
+    nitsche_boundary=True), DG(1), 4 steps a slab,
+    configs/tp03stokes_convergence_2d_dg1.json's discretisation, with
+    stfem_tpu's test_feq_pressure_stmg V-cycle: per refinement the FGMRES
+    iterations a slab, the slab walls, the setup (the hierarchy, and in it
+    the patch pseudo-inverses), the u and p L2-L2 errors and their rates,
+    and one V-cycle under the profiler; slabs_max[ref] cuts a refinement's
+    march.  (b) refinements 1 and 2 with one step at once on the card
+    against the CPU (iterations, every norm within 1e-8) and against
+    stfem_tpu's CPU counts and errors (FEQ_CPU).  Returns (a)'s launches;
+    the path runs none of K1-K5."""
+    import torch
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.drivers import stokes
+    from stfem_tpu_torch.types import TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    t_phase = time.time()
+    slabs_max = slabs_max or {}
+    norms = ("l2_l2_u", "linf_linf_u", "l2_h1_u", "l2_hdiv_u", "l2_l2_p",
+             "linf_linf_p", "l2_h1_p")
+
+    def cycle(ref, device=None, **kw):
+        return stokes.run_stokes_cycle(
+            refinement=ref, fe_degree=1, type_=TimeStepType.DG,
+            preconditioner_factory=_feq_factory, dg_pressure=False,
+            nitsche_boundary=True, device=device or dev, **kw)
+
+    for w in wrappers.values():
+        w.launches = 0
+    errs = {}
+    for ref in refinements:
+        timer, last = TimerOutput(), {}
+        with _PinvClock() as pinv:
+            t0 = time.time()
+            res = cycle(ref, n_timesteps_at_once=4, timer=timer,
+                        on_slab=last.update,
+                        n_slabs_max=slabs_max.get(ref))
+            wall = time.time() - t0
+        n = res.n_dofs_u + res.n_dofs_p
+        st = n * res.n_blocks // 2
+        walls = timer.times["step"]
+        whole = ref not in slabs_max
+        if whole:
+            errs[ref] = (res.l2_l2_u, res.l2_l2_p)
+        v = last["rhs"] / last["rhs"].norm()
+        vprof = bench_heat.profile_slab(lambda: last["preconditioner"](v),
+                                        dev, top=4)
+        print(f"# feq {2 ** ref}^2 Q2/Q1 DG(1), 4 steps a slab: {n} "
+              f"unknowns a block, {st} a slab; {res.n_timesteps} slabs"
+              f"{'' if whole else ' (cut)'}, FGMRES iterations a slab "
+              f"{res.slab_iterations} (mean {res.avg_iterations:.3f}); slab "
+              f"walls mean {sum(walls) / len(walls):.4f} s (min "
+              f"{min(walls):.4f}, max {max(walls):.4f}), "
+              f"{st * len(walls) / sum(walls):.4e} space-time DoF/s; setup "
+              f"{timer.totals['setup']:.2f} s (hierarchy "
+              f"{timer.totals['setup:gmg']:.2f} s, of it "
+              f"{pinv.calls} patch pinv calls {pinv.seconds:.3f} s); L2-L2 u "
+              f"{res.l2_l2_u:.6e} p {res.l2_l2_p:.6e}; one V-cycle: "
+              f"{vprof['n_kernel_launches']} launches, "
+              f"{vprof['wall_s'] * 1e3:.2f} ms wall, busy share "
+              f"{vprof['device_busy_share']:.4f}; run wall {wall:.1f} s",
+              flush=True)
+        if (max(res.slab_iterations) >= 200
+                or not np.isfinite([res.l2_l2_u, res.l2_l2_p]).all()):
+            raise AssertionError(f"feq {ref}: a slab did not converge")
+        del last, v
+        torch.cuda.empty_cache()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    refs = sorted(errs)
+    rates = [(a, b, float(np.log2(errs[a][0] / errs[b][0])),
+              float(np.log2(errs[a][1] / errs[b][1])))
+             for a, b in zip(refs, refs[1:])]
+    print(f"# feq L2-L2 rates between whole refinements (u, p): "
+          f"{[(a, b, round(u, 3), round(q, 3)) for a, b, u, q in rates]} "
+          f"(bars u > 2.0, p > 1.5, stfem_tpu's test)", flush=True)
+    if not rates or any(u <= 2.0 or q <= 1.5 for _, _, u, q in rates):
+        raise AssertionError("feq: a rate missed its bar")
+
+    # (b) refinements 1 and 2, one step at once: card, CPU, stfem_tpu
+    for ref, (its, l2u, l2p) in FEQ_CPU.items():
+        g, c = cycle(ref), cycle(ref, device="cpu")
+        dn = max(abs(getattr(g, n) / getattr(c, n) - 1.0) for n in norms)
+        dj = max(abs(c.l2_l2_u / l2u - 1.0), abs(c.l2_l2_p / l2p - 1.0))
+        print(f"# feq small ref {ref}: FGMRES iterations card "
+              f"{g.total_iterations} CPU {c.total_iterations} stfem_tpu "
+              f"{its}; norms card/CPU {dn:.2e} relative (tol 1e-8), L2-L2 "
+              f"CPU/stfem_tpu {dj:.2e} (tol 1e-8)", flush=True)
+        if (g.total_iterations != c.total_iterations
+                or c.total_iterations != its or max(dn, dj) > 1e-8):
+            raise AssertionError(f"feq small ref {ref}: card, CPU and "
+                                 "stfem_tpu differ")
+    print(f"# feq launches {counts}: the path runs no port kernel "
+          f"(stfem_tpu's counterpart reaches no Pallas call); phase wall "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def dirichlet_heat_phase(wrappers, dev, refinements=(2, 3, 4, 5),
+                         slabs_max=None) -> dict:
+    """Phase 17(c): strong inhomogeneous Dirichlet heat --
+    run_heat_cycle with configs/tp01_convergence_3d_heat_dg1.json's
+    discretisation (Q2 x dG(1), 2 steps a slab, GMGParams' defaults) on
+    [0.25, 1.25]^3 with heat "solution 2" (problems/manufactured.py) as
+    the exact solution, the rhs and dirichlet_g, and the lift.  Per slab
+    the FGMRES iterations, the slab wall and a true FP64 residual against
+    the lifted rhs through unmasked element matrices (no code shared with
+    the "kron" route), within 2x of FGMRES's stop test; per refinement
+    the largest gap between the solution's constrained dofs and g at the
+    block times (1e-12), the errors and the K1-K4 launches; the L2-L2
+    rate between whole refinements >= 1.8.  slabs_max[ref] cuts a
+    refinement's march.  Returns the launches over the phase; K1-K4 must
+    launch at the finest refinement."""
+    import torch
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.drivers.heat import (run_heat_cycle,
+                                              stmg_preconditioner_factory)
+    from stfem_tpu_torch.problems.manufactured import heat2
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    t_phase = time.time()
+    slabs_max = slabs_max or {}
+    f64 = torch.float64
+    exact, grad, rhs_fn = heat2(3)
+    total = dict.fromkeys(wrappers, 0)
+    names = {"K1": ("time_solve",), "K2": ("kron_pair",),
+             "K3": ("banded_apply",), "K4": ("chain_down", "chain_up")}
+    errs, last_counts = {}, {}
+    for ref in refinements:
+        for w in wrappers.values():
+            w.launches = 0
+        rows, held = [], {}
+
+        def on_slab(integ, t, dt, prev, x, stats):
+            saved = {name: w.launches for name, w in wrappers.items()}
+            K, M, bv = (integ.matrix.K, integ.matrix.M,
+                        integ.boundary_values)
+            if "EK" not in held:
+                held.update(EK=K.element_matrices(masked=False),
+                            EM=M.element_matrices(masked=False))
+            EK, EM, cells, mask = held["EK"], held["EM"], K.cells, K.mask
+            A, B, G, _ = (torch.as_tensor(t_, dtype=f64, device=dev)
+                          for t_ in get_fe_time_weights(TimeStepType.DG, 1,
+                                                        dt, 2))
+
+            def apply(v):
+                return mask * (torch.einsum("ji,i...->j...", A,
+                                            _element_apply(EK, v, cells, 2))
+                               + torch.einsum("ji,i...->j...", B,
+                                              _element_apply(EM, v, cells,
+                                                             2)))
+
+            x_g = bv.blocks(t)
+            rhs = (G[:, 0].reshape(-1, 1, 1, 1)
+                   * (mask * _element_apply(EM, prev, cells, 2))[None]
+                   + integ.assemble_force(t, dt) - apply(x_g))
+            rn = float((rhs - apply(mask * x)).norm())
+            r0 = float((rhs - apply(mask * integ._extrapolate(prev))).norm())
+            tol = max(integ.abstol, integ.reltol * r0)
+            gap = max(float(((x - exact(bv.coords, t + float(o)))
+                             * bv.bnd)[i].abs().max())
+                      for i, o in enumerate(bv.offsets))
+            rows.append((stats.iterations, rn, r0, tol, gap))
+            held.update(integ=integ, rhs=rhs)
+            for name, w in wrappers.items():
+                w.launches = saved[name]
+
+        timer = TimerOutput()
+        t0 = time.time()
+        res = run_heat_cycle(
+            refinement=ref, fe_degree=1, type_=TimeStepType.DG,
+            n_timesteps_at_once=2, subdivisions=(1, 1, 1),
+            lower=(0.25,) * 3, upper=(1.25,) * 3,
+            preconditioner_factory=stmg_preconditioner_factory(
+                fe_degree_min=1),
+            exact_override=(exact, grad), rhs_fn_override=rhs_fn,
+            dirichlet_g=exact, boundary_lift=True, timer=timer, device=dev,
+            on_slab=on_slab, n_slabs_max=slabs_max.get(ref))
+        wall = time.time() - t0
+        counts = {name: w.launches for name, w in wrappers.items()}
+        for name, c in counts.items():
+            total[name] += c
+        last_counts = {k: sum(counts[n] for n in ns)
+                       for k, ns in names.items()}
+        whole = ref not in slabs_max
+        if whole:
+            errs[ref] = res.l2_l2
+        walls = timer.times["step"]
+        st = res.n_blocks * res.n_dofs
+        worst = max(r[1] / r[3] for r in rows)
+        saved = {name: w.launches for name, w in wrappers.items()}
+        v = held["rhs"] / held["rhs"].norm()
+        vprof = bench_heat.profile_slab(
+            lambda: held["integ"].preconditioner(v), dev, top=4)
+        for name, w in wrappers.items():     # not the path's launches
+            w.launches = saved[name]
+        print(f"# dirichlet heat {2 ** ref}^3 Q2 x dG(1), 2 steps a slab "
+              f"({st} space-time DoFs a slab): {res.n_timesteps} slabs"
+              f"{'' if whole else ' (cut)'}, FGMRES iterations "
+              f"{res.slab_iterations}; slab walls mean "
+              f"{sum(walls) / len(walls):.4f} s (max {max(walls):.4f}), "
+              f"{st * len(walls) / sum(walls):.4e} space-time DoF/s; true "
+              f"FP64 ||r|| / FGMRES tol worst {worst:.3f} (first slab "
+              f"{rows[0][1]:.3e} vs {rows[0][3]:.3e}); largest |x - g| on "
+              f"the constrained dofs {max(r[4] for r in rows):.3e}; setup "
+              f"{timer.totals['setup']:.2f} s (hierarchy "
+              f"{timer.totals['setup:gmg']:.2f} s); L2-L2 {res.l2_l2:.6e} "
+              f"Linf {res.linf_linf:.6e} H1 {res.l2_h1:.6e}; K1-K4 launches "
+              f"{last_counts}; one V-cycle: {vprof['n_kernel_launches']} "
+              f"launches, {vprof['wall_s'] * 1e3:.2f} ms wall, busy share "
+              f"{vprof['device_busy_share']:.4f}; run wall {wall:.1f} s",
+              flush=True)
+        if worst > 2.0 or max(r[4] for r in rows) > 1e-12:
+            raise AssertionError(f"dirichlet heat {ref}: a slab missed its "
+                                 "residual or its boundary values")
+        held.clear()
+        torch.cuda.empty_cache()
+    refs = sorted(errs)
+    rates = [(a, b, float(np.log2(errs[a] / errs[b])))
+             for a, b in zip(refs, refs[1:])]
+    missing = [k for k, c in last_counts.items() if c == 0]
+    print(f"# dirichlet heat L2-L2 rates between whole refinements "
+          f"{[(a, b, round(r, 3)) for a, b, r in rates]} (bar 1.8); kernels "
+          f"not launched at the finest refinement {missing}; phase wall "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    if not rates or rates[-1][2] < 1.8 or missing:
+        raise AssertionError("dirichlet heat: rate or kernels failed")
+    return total
 
 
 def main() -> int:
@@ -2231,6 +2562,17 @@ def main() -> int:
             launches[name] += c
         by_path[label] = counts
     phase_done("navier and weak obstacle")
+
+    # 17. the continuous (FE_Q) pressure sweep 4^2..64^2 with small cells
+    #     against the CPU and stfem_tpu, then strong inhomogeneous
+    #     Dirichlet heat 4^3..32^3
+    by_path["feq"] = feq_phase(wrappers, dev, slabs_max=FEQ_CUTS)
+    by_path["dirichlet heat"] = dirichlet_heat_phase(
+        wrappers, dev, slabs_max=DIRICHLET_CUTS)
+    for label in ("feq", "dirichlet heat"):
+        for name, c in by_path[label].items():
+            launches[name] += c
+    phase_done("feq and dirichlet heat")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

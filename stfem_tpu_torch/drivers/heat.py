@@ -10,8 +10,9 @@ the space-time error norms against the manufactured solution (or
 exact_override), point probes, a timer, one binary VTK file of the
 slab's last time block per slab, and random mesh distortion (the
 reference's distortGrid, tp_01.cc:83-90: Q1 cells, the "cell" operator
-route and the cell-local Vanka on every level).  Strong inhomogeneous
-Dirichlet data is not ported and raises.
+route and the cell-local Vanka on every level), and strong
+inhomogeneous Dirichlet data g on the heat problem (set-zero, solve,
+paste, with or without the consistent lift).
 Everything runs on `device` (the card unless the caller asks for the
 CPU)."""
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from ..errors import ErrorCalculator
 from ..integrators import ForceAssembler, TimeIntegratorFO, TimeIntegratorWave
 from ..mesh.grid import StructuredMesh
+from ..ops.boundary import SlabBoundaryValues
 from ..ops.spatial import LaplaceMassOperator
 from ..problems import heat as heat_problem
 from ..system import SystemMatrix
@@ -82,7 +84,8 @@ def run_heat_cycle(refinement: int, fe_degree: int,
                    compute_errors: bool = True, initial_fn=None,
                    rhs_fn_override=None, do_output: bool = False,
                    output_prefix: str = "solution",
-                   timer=None, dirichlet_g=None, exact_override=None,
+                   timer=None, dirichlet_g=None, boundary_lift: bool = True,
+                   exact_override=None,
                    initial_v_fn=None, probe_points=None,
                    functionals_path: str | None = None,
                    device="cuda", on_slab=None,
@@ -103,10 +106,15 @@ def run_heat_cycle(refinement: int, fe_degree: int,
     and profiled slab).  do_output writes the last time block of each slab
     n (from 1) on the dof grid to {output_prefix}_{n:04d}.vtk.
     n_slabs_max, if given, stops the march after that many slabs (the
-    error norms then cover those slabs)."""
-    if dirichlet_g is not None:
-        raise NotImplementedError("inhomogeneous Dirichlet data is not "
-                                  "ported")
+    error norms then cover those slabs).  dirichlet_g(coords, t) (float64
+    dof coordinates [*dofshape, dim] on `device`) gives strong
+    inhomogeneous Dirichlet values on the boundary dofs at every block
+    time (ops/boundary.py::SlabBoundaryValues; the heat problem only, as
+    in stfem_tpu); boundary_lift adds the consistent lift rhs -= A x_g
+    (integrators.py::TimeIntegratorFO)."""
+    if dirichlet_g is not None and problem == ProblemType.wave:
+        raise ValueError("strong inhomogeneous Dirichlet data is wired for "
+                         "first-order problems only")
     device = torch.device(device)
     f64 = torch.float64
     scope = timer.scope if timer is not None else (lambda *a, **k:
@@ -176,10 +184,18 @@ def run_heat_cycle(refinement: int, fe_degree: int,
                                       force, n_timesteps_at_once,
                                       extrapolate, maxiter=gmres_maxiter)
         else:
+            bv = None
+            if dirichlet_g is not None:
+                bv = SlabBoundaryValues(mesh, space_degree, dirichlet_g,
+                                        type_, fe_degree, time_step,
+                                        n_timesteps_at_once, mask=K.mask_np,
+                                        device=device)
             step = TimeIntegratorFO(type_, fe_degree, Alpha_1, Gamma_1,
                                     rel_tol, matrix, precond, rhs_matrix,
                                     force, n_timesteps_at_once, extrapolate,
-                                    maxiter=gmres_maxiter)
+                                    maxiter=gmres_maxiter,
+                                    boundary_values=bv,
+                                    boundary_lift=boundary_lift)
         # the reference under-integrates the error norms with
         # QGauss(fe_degree + 1) (its ErrorCalculator gets the time degree
         # as space degree, tp_01.cc:809-815): kept for golden parity
@@ -222,10 +238,12 @@ def run_heat_cycle(refinement: int, fe_degree: int,
                 x, stats = step.solve(prev_x, time, time_step)
         if not stats.converged:
             raise RuntimeError(f"FGMRES stalled at t={time}: {stats}")
-        # the constrained dofs take their (zero) Dirichlet value, as the
+        # the constrained dofs take their Dirichlet value, as the
         # reference's constraints.distribute() sets them: the operator
-        # never reads them, so FGMRES leaves rounding noise there
-        x = x * K.mask
+        # never reads them, so FGMRES leaves rounding noise there.  With
+        # dirichlet_g the integrator pasted g's block values there already
+        if dirichlet_g is None:
+            x = x * K.mask
         if on_slab is not None:
             on_slab(step, time, time_step, prev_x, x, stats)
         iters.append(stats.iterations)

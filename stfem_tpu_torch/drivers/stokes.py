@@ -1,6 +1,7 @@
 """The Stokes application's cycles (counterpart of
 stfem_tpu/drivers/stokes.py; the reference's tests/tp_03stokes.cc):
-Q_{k+1}^2 velocity x DGP(k) pressure on the unit square, DG or CGP in
+Q_{k+1}^2 velocity x DGP(k) pressure on the unit square (run_stokes_cycle
+also with the continuous Q_k pressure, dg_pressure=False), DG or CGP in
 time, FP64 FGMRES with the float32 STMG V-cycle.
 
 run_stokes_cycle: the convergence mode -- the manufactured solution as the
@@ -38,7 +39,8 @@ from ..mesh.fe import shape_data_1d
 from ..mesh.fe_dgp import (dgp_gradients_at_tensor_gauss,
                            dgp_values_at_tensor_gauss)
 from ..mesh.grid import StructuredMesh
-from ..ops.spatial import LaplaceMassOperator, _sumfac, cell_scatter
+from ..ops.spatial import (LaplaceMassOperator, _sumfac, basis_tensors,
+                           cell_scatter)
 from ..ops.stokes import StokesOperator
 from ..problems import stokes as stokes_problem
 from ..system_stokes import StokesSystemMatrix
@@ -89,13 +91,19 @@ class StokesErrorCalculator:
                                      dtype, dev)
         nqp = S.p_degree + 1
         self.nqp = nqp
-        n_pl = S.n_ploc
-        self.Pq = torch.as_tensor(
-            dgp_values_at_tensor_gauss(dim, S.p_degree, nqp).reshape(
-                n_pl, -1), dtype=dtype, device=dev)
-        dP = dgp_gradients_at_tensor_gauss(dim, S.p_degree, nqp)
+        n_pl = S.n_ploc_cell
+        if S.dg_pressure:
+            P = dgp_values_at_tensor_gauss(dim, S.p_degree, nqp)
+            dP = dgp_gradients_at_tensor_gauss(dim, S.p_degree, nqp)
+        else:
+            # the nodal Q_kp basis of a cell (stfem_tpu drivers/stokes.py:
+            # 76-80, 145-160)
+            P, G = basis_tensors(dim, S.p_degree, nqp)
+            dP = np.moveaxis(G, 0, -1)
         jinv = mesh.geometry(nqp).jinv_diag
-        # physical gradients of the modal basis, [n_ploc, Qp, dim]
+        self.Pq = torch.as_tensor(P.reshape(n_pl, -1), dtype=dtype,
+                                  device=dev)
+        # physical gradients of the pressure basis, [n_ploc_cell, Qp, dim]
         self.dPq = torch.as_tensor(
             dP.reshape(n_pl, -1, dim) * np.asarray(jinv)[None, None, :],
             dtype=dtype, device=dev)
@@ -120,10 +128,13 @@ class StokesErrorCalculator:
         Hdiv-semi errors of u, its Linf error of u, the squared L2 and
         H1-semi errors of p and its Linf error of p, in the order
         (l2_u, h1_u, hdiv_u, linf_u, l2_p, h1_p, linf_p).
-        u_time: [T, dim, *grid], p_time: [T, *cells, n_ploc]."""
+        u_time: [T, dim, *grid], p_time: [T, *p_shape]."""
         S, ev, dim = self.S, self.ev_u, self.S.dim
         u = self._reconstruct(u_time, prev_u, n_at_once) * S.mask_u
         p = self._reconstruct(p_time, prev_p, n_at_once)
+        if not S.dg_pressure:
+            # [n, *cells, n_ploc_cell]: the masked nodes of each cell
+            p = S._p_local(p).reshape(p.shape[:1] + S.cells + (-1,))
         n = u.shape[0]
         ts = (time + tau * (np.arange(n_at_once)[:, None]
                             + self.tq[None, :])).reshape(-1)
@@ -143,7 +154,7 @@ class StokesErrorCalculator:
                             dim=sp + (2 * dim + 1, 2 * dim + 2))
         ddiv = torch.diagonal(gu, dim1=-2, dim2=-1).sum(-1)
         hdiv = wt @ torch.sum(ev.jxw * ddiv ** 2, dim=sp)
-        # p: modal values and gradients at QGauss(p_degree + 1)
+        # p: values and gradients at QGauss(p_degree + 1)
         qshape = (self.nqp,) * dim
         pv = (p @ self.Pq).reshape(p.shape[:-1] + qshape)
         dp = (p @ self.dPq.reshape(self.dPq.shape[0], -1)).reshape(
@@ -251,8 +262,11 @@ def run_stokes_cycle(refinement: int, fe_degree: int,
                      rel_tol: float = 1e-12, extrapolate: bool = True,
                      nitsche_boundary: bool = False,
                      dg_pressure: bool = True, device="cuda", timer=None,
-                     on_slab=None) -> StokesCycleResult:
+                     on_slab=None,
+                     n_slabs_max: int | None = None) -> StokesCycleResult:
     """One tp_03stokes convergence cycle (reference tp_03stokes.cc).
+    dg_pressure=False takes the continuous Q_k pressure (Taylor-Hood;
+    its mean is the jxw-weighted one at the quadrature points).
 
     preconditioner_factory(ctx) builds the preconditioner from the cycle
     context (None: unpreconditioned FGMRES).  timer: an optional
@@ -260,9 +274,9 @@ def run_stokes_cycle(refinement: int, fe_degree: int,
     the time loop), "setup:gmg" and "step" (one slab solve, synchronized).
     on_slab(info), if given, is called after each slab's solve with the
     slab's FGMRES problem and result (matrix, rhs, x0, x, stats, time,
-    time_step, preconditioner) and `resolve`, which solves the slab again."""
-    if not dg_pressure:
-        raise NotImplementedError("FE_Q pressure is not ported")
+    time_step, preconditioner) and `resolve`, which solves the slab again.
+    n_slabs_max, if given, stops the march after that many slabs (the
+    error norms then cover those slabs)."""
     device = torch.device(device)
     scope = timer.scope if timer is not None else (lambda *a, **k:
                                                    nullcontext())
@@ -278,7 +292,8 @@ def run_stokes_cycle(refinement: int, fe_degree: int,
         weak_faces = (tuple((d, s) for d in range(dim) for s in (0, 1))
                       if nitsche_boundary else ())
         S = StokesOperator(mesh, u_degree, p_degree, n_q, viscosity,
-                           device=device, weak_faces=weak_faces)
+                           device=device, weak_faces=weak_faces,
+                           dg_pressure=dg_pressure)
         Mu = LaplaceMassOperator(mesh, u_degree, n_q, 1.0, 0.0,
                                  device=device, mask=S.mask_u_np)
         a, b, g, z = get_fe_time_weights(type_, fe_degree, tau,
@@ -323,7 +338,8 @@ def run_stokes_cycle(refinement: int, fe_degree: int,
     detj = float(np.prod(mesh.h))
     vol = float(np.prod(mesh.upper - mesh.lower))
     time, iters, acc = 0.0, [], torch.zeros(7, dtype=F64)
-    while time < end_time - 1e-12:
+    while time < end_time - 1e-12 and (n_slabs_max is None
+                                       or len(iters) < n_slabs_max):
         with scope("step", sync=device):
             rhs, x0, res = solve_slab(prev_flat, time)
         if not res.converged:
@@ -337,13 +353,18 @@ def run_stokes_cycle(refinement: int, fe_degree: int,
                                                                         t)))
         iters.append(res.iterations)
         u_time, p_time = S.unpack(res.x)
-        if mean_pressure:
+        if mean_pressure and dg_pressure:
             # the DGP constant mode carries each cell's mean: remove the
             # mean pressure of every time block
             means = p_time[..., 0].sum(dim=tuple(range(1, dim + 1))) \
                 * (detj / vol)
             p_time = p_time.clone()
             p_time[..., 0] -= means.reshape((T,) + (1,) * dim)
+        elif mean_pressure:
+            # FE_Q: the jxw-weighted mean of every time block's pressure
+            # at the quadrature points, off every node
+            means = (S._p_at_quad(p_time) * S._wq).sum(dim=(1, 2)) / vol
+            p_time = p_time - means.reshape((T,) + (1,) * dim)
         prev_u, prev_p = S.unpack(prev_flat)
         _add_errors(acc, err.evaluate(time, tau, u_time, p_time, prev_u,
                                       prev_p, n_timesteps_at_once).cpu())

@@ -4,8 +4,9 @@ stfem_tpu/integrators.py: ForceAssembler, TimeIntegratorFO,
 TimeIntegratorWave).  TimeIntegratorFO and TimeIntegratorWave drive the
 tp_01 heat and wave cycles (drivers/heat.py); bench_heat.py and
 bench_wave.py run their own time loops (the wave bench with
-WaveVelocityRecovery, its DG-only recovery).  The strong-Dirichlet lift of
-TimeIntegratorFO is not ported."""
+WaveVelocityRecovery, its DG-only recovery).  TimeIntegratorFO also takes
+strong inhomogeneous Dirichlet data (ops/boundary.py::SlabBoundaryValues)
+with or without the consistent lift."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -76,14 +77,24 @@ class TimeIntegratorFO:
     include/time_integrators.h:300-321; stfem_tpu integrators.py:73-177):
     the slab rhs from the previous solution (rhs_matrix.vmult) plus the
     force at the time quadrature points, then FGMRES preconditioned by
-    `preconditioner` (a callable; None = unpreconditioned)."""
+    `preconditioner` (a callable; None = unpreconditioned).
+
+    boundary_values: an optional ops.boundary.SlabBoundaryValues of strong
+    inhomogeneous time-dependent Dirichlet data (the reference's
+    set-zero / solve / paste scheme, tp_03stokes.cc:1022-1046): the start
+    vector's constrained entries are zeroed and g's block values pasted
+    onto the solution.  boundary_lift also applies the consistent lift
+    rhs -= A x_g, with the previous value read unmasked (the reference
+    omits it: its operators read constrained dofs as zero, consistent
+    only for g = 0 on the boundary; stfem_tpu integrators.py:148-171)."""
 
     def __init__(self, type_: TimeStepType, time_degree: int,
                  Alpha_1: np.ndarray, Gamma_1: np.ndarray,
                  gmres_reltol: float, matrix, preconditioner,
                  rhs_matrix, force: ForceAssembler,
                  n_timesteps_at_once: int, extrapolate: bool = True,
-                 abstol: float = 1e-12, maxiter: int = 100):
+                 abstol: float = 1e-12, maxiter: int = 100,
+                 boundary_values=None, boundary_lift: bool = True):
         self.type_ = type_
         self.quad_time = get_time_quad(type_, time_degree)[0]
         self.Alpha_1 = np.asarray(Alpha_1)
@@ -97,6 +108,8 @@ class TimeIntegratorFO:
         self.nt_dofs = (time_degree + 1 if type_ == TimeStepType.DG
                         else time_degree)
         self.extrapolate = extrapolate
+        self.boundary_values = boundary_values
+        self.boundary_lift = boundary_lift
 
     def assemble_force(self, time: float, time_step: float) -> torch.Tensor:
         """[n_blocks, *dofshape]: the force at each time quadrature point,
@@ -129,13 +142,20 @@ class TimeIntegratorFO:
 
     def solve(self, prev_x: torch.Tensor, time: float,
               time_step: float) -> tuple[torch.Tensor, SolveStats]:
-        rhs = (self.rhs_matrix.vmult(prev_x[None])
+        bv = self.boundary_values
+        lift = bv is not None and self.boundary_lift
+        rhs = (self.rhs_matrix.vmult(prev_x[None], mask_input=not lift)
                + self.assemble_force(time, time_step))
-        res = fgmres(self.matrix.vmult, rhs, self._extrapolate(prev_x),
+        if lift:
+            rhs = rhs - self.matrix.vmult(bv.blocks(time), mask_input=False)
+        x0 = self._extrapolate(prev_x)
+        if bv is not None:
+            x0 = bv.set_zero(x0)
+        res = fgmres(self.matrix.vmult, rhs, x0,
                      self.preconditioner, maxiter=self.maxiter,
                      reltol=self.reltol, abstol=self.abstol)
-        return res.x, SolveStats(res.iterations, res.residual,
-                                 res.converged)
+        x = res.x if bv is None else bv.paste(res.x, bv.blocks(time))
+        return x, SolveStats(res.iterations, res.residual, res.converged)
 
 
 class TimeIntegratorWave(TimeIntegratorFO):

@@ -24,6 +24,13 @@ __all__ = ["obstacle_faces", "compute_drag_lift", "compute_drag_lift_mapped",
            "compute_wall_force", "compute_divergence_norm"]
 
 
+def _dgp_only(S: StokesOperator) -> None:
+    if not S.dg_pressure:
+        raise NotImplementedError("the traction functionals read the modal "
+                                  "DGP pressure trace; FE_Q pressure has "
+                                  "none")
+
+
 def _obstacle_traction(S: StokesOperator, u, p,
                        scale: float) -> torch.Tensor:
     """scale * sum over the obstacle faces of int [p n - nu (grad u +
@@ -32,7 +39,9 @@ def _obstacle_traction(S: StokesOperator, u, p,
     the diagonal of its steps, times the map's Jacobian on a mapped
     mesh), n ds = n_sign detJ J^{-T} e_d0 dxi
     (Nanson), grad u through J^{-1}; every face in one batched pass per
-    (axis, side)."""
+    (axis, side).  The modal DGP pressure only (stfem_tpu functionals.py:
+    116 asserts it)."""
+    _dgp_only(S)
     mesh, dim, k, nq = S.mesh, S.dim, S.u_degree, S.n_q
     nu = S.viscosity
     u = torch.as_tensor(u, dtype=S.dtype, device=S.device)
@@ -102,6 +111,7 @@ def compute_wall_force(S: StokesOperator, u, p, face,
     the faces need the map to be the identity on the outer boundary, as
     the operator checks.  u: [dim, *grid], p: [*cells, n_ploc]; returns
     [dim]."""
+    _dgp_only(S)
     d0, side = face
     mesh, dim, k, nq = S.mesh, S.dim, S.u_degree, S.n_q
     as_t = lambda a: torch.as_tensor(

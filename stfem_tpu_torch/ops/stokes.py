@@ -1,13 +1,15 @@
 """Matrix-free Stokes saddle-point operator on structured meshes
-(counterpart of stfem_tpu/ops/stokes.py::StokesOperator; the DGP-pressure
-case with strong, Nitsche or free velocity faces, on uniform, masked,
-non-uniform and exactly mapped meshes, linear or in the Navier modes).
+(counterpart of stfem_tpu/ops/stokes.py::StokesOperator; the DGP or the
+continuous FE_Q pressure, with strong, Nitsche or free velocity faces, on
+uniform, masked, non-uniform and exactly mapped meshes, linear or in the
+Navier modes).
 
 Weak form per cell (reference include/operators.h:1525-1575):
   u-row:  nu (grad u, grad v) - (p, div v) [- convection]
   p-row:  (div u, q)
-Velocity: vector Q_k (component axis leading), pressure: modal DGP.  The
-operator acts batched over arbitrary leading axes (time positions).
+Velocity: vector Q_k (component axis leading), pressure: modal DGP (or
+nodal FE_Q, below).  The operator acts batched over arbitrary leading
+axes (time positions).
 
 Flat packing: a Stokes space-time vector is [T, n_u + n_p] with
 u = x[:, :n_u].reshape(T, dim, *dofgrid) and
@@ -42,7 +44,16 @@ that no active cell carries: the obstacle's faces then carry the same
 Nitsche terms with g = 0, as dense per-face matrices over the (possibly
 curved) face quadrature, built once.  Every sum over faces or planes
 that meet a dof is owner-computes (utils/assembly.py::layer_sources):
-no float atomics.  FE_Q pressure is not ported and raises.
+no float atomics.
+
+dg_pressure=False selects the Taylor-Hood pair Q_{k+1}/Q_k with a
+continuous nodal pressure (reference tp_03stokes.cc:83-86; stfem_tpu's
+dg_pressure switch): p = x[:, n_u:].reshape(T, *pdofgrid), the pressure
+eliminated on the nodes of removed cells (mask_p), its values at the
+quadrature points a cell gather and the full-cell nodal basis, the
+continuity (div u, q) rows an overlap-add back onto the nodes, and the
+Nitsche pressure terms the nodal trace on the boundary plane.  The weak
+obstacle takes the DGP pair only.
 """
 from __future__ import annotations
 
@@ -176,8 +187,10 @@ class StokesOperator:
         masked mesh every dof of a removed cell is eliminated (the strong
         obstacle), or, with weak_obstacle, only those that no active cell
         carries, and the obstacle's faces carry Nitsche no-slip terms."""
-        if not dg_pressure:
-            raise NotImplementedError("FE_Q pressure is not ported")
+        if weak_obstacle and not dg_pressure and mesh.cell_mask is not None:
+            # stfem_tpu ops/stokes.py:640 asserts the same
+            raise ValueError("the weak obstacle is implemented for the DGP "
+                             "pressure pair")
         self.mesh = mesh
         self.dim = dim = mesh.dim
         self.u_degree = u_degree
@@ -188,12 +201,26 @@ class StokesOperator:
         self.beta = float(outflow_penalty)
         self.dtype = dtype
         self.device = torch.device(device)
-        self.dg_pressure = True
+        self.dg_pressure = bool(dg_pressure)
         self.cells = mesh.cells
         self.dof_shape_u = mesh.dof_shape(u_degree)
         self.n_ploc = n_dgp_dofs(dim, p_degree)
         as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                          device=self.device)
+        if not self.dg_pressure:
+            # the nodal Q_{p_degree} pressure grid, eliminated on the nodes
+            # of removed cells (stfem_tpu ops/stokes.py:67-81)
+            self.dof_shape_p = mesh.dof_shape(p_degree)
+            self._Sp = as_t(shape_data_1d(p_degree, n_q).S)    # (q, kp+1)
+            maskp = np.ones(self.dof_shape_p)
+            if mesh.cell_mask is not None:
+                maskp = np.zeros(self.dof_shape_p)
+                for cidx in np.argwhere(mesh.cell_mask == 1.0):
+                    maskp[tuple(slice(int(c) * p_degree,
+                                      int(c) * p_degree + p_degree + 1)
+                                for c in cidx)] = 1.0
+            self.mask_p_np = maskp
+            self.mask_p = as_t(maskp)
         self.weak_faces = tuple((int(d), int(s)) for d, s in weak_faces)
         self.free_faces = tuple((int(d), int(s)) for d, s in free_faces)
         if mesh.vertex_map is not None and (self.weak_faces
@@ -228,8 +255,11 @@ class StokesOperator:
         self.mask_u = as_t(mask)
         # modal pressure basis at the tensor Gauss points (reference cell)
         self.Pq = as_t(dgp_values_at_tensor_gauss(dim, p_degree, n_q))
+        self._Pb = (self.Pq.reshape(self.n_ploc, -1) if self.dg_pressure
+                    else as_t(basis_tensors(dim, p_degree, n_q)[0]))
         self.n_u = dim * int(np.prod(self.dof_shape_u))
-        self.n_p = int(np.prod(self.cells)) * self.n_ploc
+        self.n_p = (int(np.prod(self.cells)) * self.n_ploc if self.dg_pressure
+                    else int(np.prod(self.dof_shape_p)))
         self.uniform = mesh.uniform
         phi, self._grad_ref = basis_tensors(dim, u_degree, n_q)
         self._Phi = as_t(phi)                                 # [A, Q]
@@ -330,22 +360,44 @@ class StokesOperator:
 
     @property
     def p_shape(self) -> tuple[int, ...]:
-        """Per-block pressure shape [*cells, n_ploc] (DGP modal)."""
-        return self.cells + (self.n_ploc,)
+        """Per-block pressure shape: [*cells, n_ploc] (DGP modal) or
+        [*pdofgrid] (FE_Q nodal)."""
+        return (self.cells + (self.n_ploc,) if self.dg_pressure
+                else self.dof_shape_p)
 
     @property
     def n_ploc_cell(self) -> int:
-        return self.n_ploc
+        """Local pressure dofs per cell: DGP modes or Q_{kp} nodal values."""
+        return (self.n_ploc if self.dg_pressure
+                else (self.p_degree + 1) ** self.dim)
 
     def _p_basis_at_quad(self) -> torch.Tensor:
-        """[n_ploc, Q] modal pressure basis at the tensor Gauss points."""
-        return self.Pq.reshape(self.n_ploc, -1)
+        """[n_ploc_cell, Q] local pressure basis at the tensor Gauss points
+        (modal shifted Legendre for DGP, nodal Lagrange for FE_Q)."""
+        return self._Pb
+
+    def _p_local(self, p: torch.Tensor) -> torch.Tensor:
+        """[..., *p_shape] -> the cell-local pressure dofs [..., C,
+        n_ploc_cell] (FE_Q: masked nodal values, gathered per cell)."""
+        lead = p.shape[:p.ndim - len(self.p_shape)]
+        C = int(np.prod(self.cells))
+        if not self.dg_pressure:
+            p = cell_gather(p * self.mask_p, self.cells, self.p_degree)
+        return p.reshape(lead + (C, self.n_ploc_cell))
+
+    def _p_to_grid(self, y: torch.Tensor) -> torch.Tensor:
+        """Transpose of _p_local: [..., C, n_ploc_cell] -> [..., *p_shape]
+        (FE_Q: overlap-added onto the nodes, then masked)."""
+        lead = y.shape[:-2]
+        if self.dg_pressure:
+            return y.reshape(lead + self.p_shape)
+        kp = self.p_degree
+        y = y.reshape(lead + self.cells + (kp + 1,) * self.dim)
+        return cell_scatter(y, self.cells, kp) * self.mask_p
 
     def _p_at_quad(self, p: torch.Tensor) -> torch.Tensor:
-        """[..., *cells, n_ploc] -> [..., C, Q]."""
-        lead = p.shape[:-self.dim - 1]
-        C = int(np.prod(self.cells))
-        return p.reshape(lead + (C, self.n_ploc)) @ self._p_basis_at_quad()
+        """[..., *p_shape] -> [..., C, Q]."""
+        return self._p_local(p) @ self._Pb
 
     # -- gradients at the quadrature points ----------------------------------
     def _grad_phys(self, uc: torch.Tensor) -> torch.Tensor:
@@ -370,7 +422,7 @@ class StokesOperator:
     # -- apply --------------------------------------------------------------
     def apply(self, u: torch.Tensor, p: torch.Tensor, mode: str = "none",
               u_lin: torch.Tensor | None = None, mask_input: bool = True):
-        """(ru, rp); u: [..., dim, *dofgrid], p: [..., *cells, n_ploc].
+        """(ru, rp); u: [..., dim, *dofgrid], p: [..., *p_shape].
         mode "none" is linear Stokes; "jacobian" (the Navier
         linearization: the gradient term less u_lin (x) du + du (x)
         u_lin) and "form" (the Oseen operator: less du (x) u_lin) take the
@@ -390,8 +442,7 @@ class StokesOperator:
         g = self._grad_phys(uc)                    # [..., c, C, d, Q]
         div = torch.diagonal(g, dim1=-4, dim2=-2).sum(-1)   # [..., C, Q]
         p_q = self._p_at_quad(p)                   # [..., C, Q]
-        rp = ((div * self._wq) @ self._p_basis_at_quad().T).reshape(
-            lead + self.p_shape)
+        rp = self._p_to_grid((div * self._wq) @ self._Pb.T)
         t = self.viscosity * g - self._eye * p_q.unsqueeze(-2).unsqueeze(-4)
         if navier:
             # values at the quad points, [..., c, C, Q]; as_d puts the
@@ -428,42 +479,58 @@ class StokesOperator:
     # -- cell-local layout ----------------------------------------------------
     def local_maps(self):
         """(lidx (C, W), src (n, 2, .., 2)) int64 NumPy, W = dim A +
-        n_ploc: lidx[c, w] is the flat index into one block's [n_u + n_p]
-        vector of cell c's local entry w (velocity component-major, then
-        the pressure modes); src lists each flat entry's positions in a
-        flat (C, W) cell-local array as utils/assembly.py::overlap_sources
-        does (the pressure modes have one each), C W where there is none,
-        so that their sum over the trailing axes, last first, is the
-        overlap-add of the velocity in cell_scatter's order."""
+        n_ploc_cell: lidx[c, w] is the flat index into one block's
+        [n_u + n_p] vector of cell c's local entry w (velocity
+        component-major, then the pressure modes or nodes); src lists each
+        flat entry's positions in a flat (C, W) cell-local array as
+        utils/assembly.py::overlap_sources does (a DGP mode has one, a
+        nodal pressure dof one per cell that holds it), C W where there is
+        none, so that their sum over the trailing axes, last first, is the
+        overlap-add in cell_scatter's order."""
         dim, k = self.dim, self.u_degree
         C = int(np.prod(self.cells))
         A = (k + 1) ** dim
-        W = dim * A + self.n_ploc
+        n_pl = self.n_ploc_cell
+        W = dim * A + n_pl
         n_s = int(np.prod(self.dof_shape_u))
-        g = cell_dof_indices(self.cells, k)
-        lidx = np.concatenate(
-            [g + c * n_s for c in range(dim)]
-            + [self.n_u + np.arange(C)[:, None] * self.n_ploc
-               + np.arange(self.n_ploc)[None, :]], axis=1)
-        src_s = overlap_sources(self.cells, k)              # into (C, A)
-        cell, a = np.divmod(src_s, A)
-        none = src_s == C * A
-        src_u = [np.where(none, C * W, cell * W + c * A + a)
+
+        def shared(kk, base):
+            """Local indices and sources of a Q_kk grid whose cell-local
+            entries start at column base of each cell's W."""
+            src = overlap_sources(self.cells, kk)
+            cell, a = np.divmod(src, (kk + 1) ** dim)
+            return (cell_dof_indices(self.cells, kk),
+                    np.where(src == C * (kk + 1) ** dim, C * W,
+                             cell * W + base + a))
+
+        g, src_s = shared(k, 0)
+        lidx_u = [g + c * n_s for c in range(dim)]
+        src_u = [np.where(src_s == C * W, C * W, src_s + c * A)
                  for c in range(dim)]
-        src_p = np.full((C * self.n_ploc,) + (2,) * dim, C * W, np.int64)
-        src_p[(slice(None),) + (1,) * dim] = (
-            np.arange(C)[:, None] * W + dim * A
-            + np.arange(self.n_ploc)[None, :]).reshape(-1)
-        return lidx, np.concatenate(src_u + [src_p])
+        if self.dg_pressure:
+            lidx_p = (self.n_u + np.arange(C)[:, None] * n_pl
+                      + np.arange(n_pl)[None, :])
+            src_p = np.full((C * n_pl,) + (2,) * dim, C * W, np.int64)
+            src_p[(slice(None),) + (1,) * dim] = (
+                np.arange(C)[:, None] * W + dim * A
+                + np.arange(n_pl)[None, :]).reshape(-1)
+        else:
+            gp, src_p = shared(self.p_degree, dim * A)
+            lidx_p = self.n_u + gp
+        return (np.concatenate(lidx_u + [lidx_p], axis=1),
+                np.concatenate(src_u + [src_p]))
 
     # -- element matrices for the Vanka patches -----------------------------
     def element_matrices(self, masked: bool = True):
         """(E_uu_scalar, E_up, E_pu): E_uu_scalar = nu-scaled scalar Laplace
         element matrices [C, A, A] (identical per component); E_up [C,
-        dim*A, n_ploc] (u rows component-major): -int d_c phi_a psi_m;
-        E_pu [C, n_ploc, dim*A]: +int psi_m d_c phi_a.  The eliminated
-        velocity rows/cols are zeroed unless masked is False.  The Nitsche
-        face terms are face_element_matrices'."""
+        dim*A, n_ploc_cell] (u rows component-major): -int d_c phi_a psi_m;
+        E_pu [C, n_ploc_cell, dim*A]: +int psi_m d_c phi_a, psi_m the
+        modal DGP or the cell-local nodal FE_Q basis (for FE_Q the
+        assembled coupling is the neighbour-overlap sum, which the Vanka
+        build does).  The eliminated velocity rows/cols and FE_Q pressure
+        columns are zeroed unless masked is False.  The Nitsche face terms
+        are face_element_matrices'."""
         dim, k = self.dim, self.u_degree
         lap = LaplaceMassOperator(self.mesh, k, self.n_q, 0.0,
                                   self.viscosity, dtype=self.dtype,
@@ -495,6 +562,10 @@ class StokesOperator:
         if masked:
             mloc = cell_gather(self.mask_u, self.cells, k).reshape(C, A)
             E_up = E_up * torch.cat([mloc] * dim, dim=1)[:, :, None]
+            if not self.dg_pressure:
+                # the eliminated (removed-cell) pressure nodes
+                E_up = E_up * cell_gather(self.mask_p, self.cells,
+                                          self.p_degree).reshape(C, 1, -1)
         E_pu = -E_up.transpose(1, 2)
         return E_uu, E_up, E_pu
 
@@ -547,6 +618,8 @@ class StokesOperator:
             coords[..., d] = pos.reshape(shape)
         return dict(d0=d0, side=side, n_sign=n_sign, oth=oth,
                     cells_oth=cells_oth, h0=h0, D1edge_np=D1e,
+                    mask_p=(None if self.dg_pressure
+                            else self.mask_p[self._plane(d0, side)]),
                     # d/dn of the layer's k+1 node rows at the face
                     prof=as_t(D1e * (n_sign / h0)),
                     jxw=as_t(jxw), jxw_np=jxw, hf=as_t(hf), hf_np=hf,
@@ -555,18 +628,40 @@ class StokesOperator:
                     coords=torch.as_tensor(coords, dtype=torch.float64,
                                            device=self.device))
 
-    def _trace_eval(self, field, cells_oth):
-        """[..., *dofs_oth] -> [..., *cells_oth, *q_oth]."""
+    def _trace_eval(self, field, cells_oth, pressure: bool = False):
+        """[..., *dofs_oth] -> [..., *cells_oth, *q_oth] (of the velocity
+        grid, or with pressure of the FE_Q pressure grid)."""
         m = self.dim - 1
-        fc = cell_gather(field, cells_oth, self.u_degree)
-        return _sumfac([self._S1] * m, fc, m)
+        k, S1 = ((self.p_degree, self._Sp) if pressure
+                 else (self.u_degree, self._S1))
+        return _sumfac([S1] * m, cell_gather(field, cells_oth, k), m)
 
-    def _trace_integrate(self, vals, cells_oth):
+    def _trace_integrate(self, vals, cells_oth, pressure: bool = False):
         """Transpose of _trace_eval: [..., *cells_oth, *q_oth] ->
         [..., *dofs_oth]."""
         m = self.dim - 1
-        y = _sumfac([self._S1] * m, vals, m, forward=False)
-        return cell_scatter(y, cells_oth, self.u_degree)
+        k, S1 = ((self.p_degree, self._Sp) if pressure
+                 else (self.u_degree, self._S1))
+        return cell_scatter(_sumfac([S1] * m, vals, m, forward=False),
+                            cells_oth, k)
+
+    def _p_face_terms(self, p_b, un_w, f):
+        """The pressure side of a Nitsche face: (pq, rp_add) -- the
+        pressure trace [..., *cells_oth, *q_oth] (None when p_b is None)
+        and the (q n, u) row [..., *plane] from un_w = (u . n) jxw on the
+        face points.  p_b is the pressure's boundary plane: the DGP modes
+        of the layer cells [..., *cells_oth, n_ploc], or the FE_Q nodes
+        [..., *pdofs_oth] (masked here; stfem_tpu ops/stokes.py:537-546)."""
+        cells_oth = f["cells_oth"]
+        if self.dg_pressure:
+            lead = un_w.shape[:un_w.ndim - 2 * (self.dim - 1)] + cells_oth
+            pq = None if p_b is None else (p_b @ f["Pqf"]).reshape(
+                un_w.shape)
+            return pq, -(un_w.reshape(lead + (-1,)) @ f["Pqf"].T)
+        mp = f["mask_p"]
+        pq = None if p_b is None else self._trace_eval(p_b * mp, cells_oth,
+                                                       True)
+        return pq, -self._trace_integrate(un_w, cells_oth, True) * mp
 
     def _layer(self, f: dict):
         """(start, length) of the boundary cell layer's k+1 node rows
@@ -578,7 +673,7 @@ class StokesOperator:
     def apply_nitsche(self, u: torch.Tensor, p: torch.Tensor):
         """Weak-face contributions (ru_add, rp_add), u: [..., dim, *grid]
         (masked by apply() unless its mask_input is False), p: [...,
-        *cells, n_ploc].  Per face, every component at once: the traces
+        *p_shape].  Per face, every component at once: the traces
         of u and of its normal derivative at the face quadrature points,
         the penalty, consistency and pressure terms, and the adjoint
         consistency term on the normal derivative of the test functions."""
@@ -596,11 +691,9 @@ class StokesOperator:
             dn = torch.movedim(u.narrow(ax, start, length), ax, -1) @ f["prof"]
             dnq = self._trace_eval(dn, cells_oth)   # [..., dim, cells, q]
             un = n_sign * uq.select(L, d0)
-            p_b = p.select(L + d0, eidx)         # [..., *cells_oth, n_ploc]
-            pq = (p_b @ f["Pqf"]).reshape(un.shape)
-            lead = un.shape[:L + dim - 1]        # [..., *cells_oth]
-            rp.select(L + d0, eidx).add_(
-                -((un * jxw).reshape(lead + (-1,)) @ f["Pqf"].T))
+            pq, rp_add = self._p_face_terms(p.select(L + d0, eidx),
+                                            un * jxw, f)
+            rp.select(L + d0, eidx).add_(rp_add)
             t1 = (self.gamma1 / hf) * uq - nu * dnq
             t1.select(L, d0).add_((self.gamma2 / hf) * n_sign * un
                                   + n_sign * pq)
@@ -616,7 +709,7 @@ class StokesOperator:
     def nitsche_rhs(self, g_fn, t):
         """Right-hand side of the weak Dirichlet data g(x, t) (reference
         StokesNitscheMatrixFreeOperator::vmult): (rhs_u [dim, *grid],
-        rhs_p [*cells, n_ploc]).  g_fn(points [..., dim] float64 tensor,
+        rhs_p [*p_shape]).  g_fn(points [..., dim] float64 tensor,
         t) returns [..., dim]."""
         dim = self.dim
         nu = self.viscosity
@@ -631,8 +724,8 @@ class StokesOperator:
             jxw, hf = f["jxw"], f["hf"]
             g = torch.movedim(g_fn(f["coords"], t).to(self.dtype), -1, 0)
             gn = n_sign * g[d0]                  # [*cells_oth, *q_oth]
-            rhs_p.select(d0, eidx).add_(
-                -((gn * jxw).reshape(cells_oth + (-1,)) @ f["Pqf"].T))
+            rhs_p.select(d0, eidx).add_(self._p_face_terms(None, gn * jxw,
+                                                           f)[1])
             t1 = (self.gamma1 / hf) * g
             t1[d0] += (self.gamma2 / hf) * n_sign * gn
             rhs_u.select(1 + d0, eidx).add_(
@@ -650,8 +743,9 @@ class StokesOperator:
         """Per weak face: (d0, side, Fuu, Fup, Fpu), the Nitsche terms of
         the boundary-layer cells' element matrices (reference
         compute_matrix_helper incl. faces, operators.h:1472-1494).  Fuu:
-        one (C_layer, A, A) per component; Fup (C_layer, dim*A, n_ploc)
-        with component-major rows; Fpu its transpose with the p-row sign.
+        one (C_layer, A, A) per component; Fup (C_layer, dim*A,
+        n_ploc_cell) with component-major rows (the modal or the nodal
+        pressure trace); Fpu its transpose with the p-row sign.
         Built in float64 NumPy, returned in the operator's dtype."""
         dim, k, nq = self.dim, self.u_degree, self.n_q
         nu = self.viscosity
@@ -688,8 +782,21 @@ class StokesOperator:
             for c in range(dim):
                 g = self.gamma1 / hf + (self.gamma2 / hf if c == d0 else 0.0)
                 Fuu.append(as_t(pen0 * g[:, :, None] - nu * con))
-            n_pl = self.n_ploc
-            blk = np.einsum("cq,aq,mq->cam", jxwf, tr, f["Pqf_np"]) * n_sign
+            n_pl = self.n_ploc_cell
+            Pqf = f["Pqf_np"]
+            if not self.dg_pressure:
+                # the nodal FE_Q pressure trace of the cell-local basis
+                # (stfem_tpu ops/stokes.py:835-849)
+                kp = self.p_degree
+                Sp1 = shape_data_1d(kp, nq).S
+                locsp = np.stack(np.meshgrid(*([np.arange(kp + 1)] * dim),
+                                             indexing="ij"), -1).reshape(
+                                                 n_pl, dim)
+                Pqf = (locsp[:, d0] == (0 if side == 0 else kp)).astype(
+                    float)[:, None] * np.ones((1, Qf))
+                for i, d in enumerate(oth):
+                    Pqf = Pqf * Sp1[q_idx[:, i][None, :], locsp[:, d][:, None]]
+            blk = np.einsum("cq,aq,mq->cam", jxwf, tr, Pqf) * n_sign
             Fup = np.zeros((C_layer, dim * A, n_pl))
             Fpu = np.zeros((C_layer, n_pl, dim * A))
             Fup[:, d0 * A:(d0 + 1) * A, :] = blk          # + p n . v

@@ -548,15 +548,17 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
     and solution.  The mesh ladder
     keeps the fine mesh's cell mask (strided), base axis steps and vertex
     map.  The level operators take StokesSystemMatrix's "element" route.
-    FE_Q pressure is not ported and raises."""
+    dg_pressure=False builds the Taylor-Hood pair Q_{k+1}/Q_k with the
+    continuous nodal pressure on every level (the pressure degree never
+    drops below Q1): FE_Q Vanka patches, the nodal pressure transfers
+    under the pressure masks, and the masked nodal pressure as the coarse
+    nullspace (stfem_tpu gmg.py:850-854, 911-925, 961-972)."""
     from ..blocks import BlockSlice
     from ..ops.stokes import StokesOperator
     from ..system_stokes import StokesSystemMatrix
     from ..time.tables import get_fe_time_weights_stokes
     from .stokes_level import StokesSpaceTransfer, StokesVanka
 
-    if not dg_pressure:
-        raise NotImplementedError("FE_Q pressure is not ported")
     params = params or GMGParams()
     device = torch.device(device)
     if fe_degree_min is None:
@@ -627,6 +629,7 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
             S = StokesOperator(meshes[key[0]], u_deg, u_deg - 1, u_deg + 1,
                                viscosity, dtype=dtype, device=device,
                                weak_faces=weak_faces, free_faces=free_faces,
+                               dg_pressure=dg_pressure,
                                weak_obstacle=weak_obstacle)
             Mu = LaplaceMassOperator(meshes[key[0]], u_deg, u_deg + 1, 1.0,
                                      0.0, dtype=dtype, device=device,
@@ -662,7 +665,8 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
             # Stokes keeps deal.II's power estimate (the saddle-point P A
             # spectrum is complex; stfem_tpu gmg.py:856-870)
             flat_mask = np.concatenate(
-                [np.tile(S.mask_u_np.reshape(-1), S.dim), np.ones(S.n_p)])
+                [np.tile(S.mask_u_np.reshape(-1), S.dim),
+                 np.ones(S.n_p) if dg_pressure else S.mask_p_np.reshape(-1)])
             info = _usable(estimate_eigenvalues(
                 matrix, vanka, (T_l, S.n_u + S.n_p), flat_mask,
                 device=device, method="power",
@@ -687,8 +691,20 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
                         for d in range(mesh_hi.dim)]
             ut = SpaceTransfer(P1ds, S_hi.mask_u_np, S_lo.mask_u_np, dtype,
                                device)
+            pt = None
+            if not dg_pressure:
+                # the nodal pressure transfer, one degree below the velocity
+                kp_hi, kp_lo = deg_hi - 1, deg_lo - 1
+                P1ds_p = ([h_prolongation_global_1d(mesh_lo.cells[d], kp_hi)
+                           for d in range(mesh_hi.dim)] if mgt == MGType.h
+                          else [p_prolongation_global_1d(mesh_hi.cells[d],
+                                                         kp_lo, kp_hi)
+                                for d in range(mesh_hi.dim)])
+                pt = SpaceTransfer(P1ds_p, S_hi.mask_p_np, S_lo.mask_p_np,
+                                   dtype, device)
             transfers.append(StokesSpaceTransfer(
-                S_hi, S_lo, ut, "h" if mgt == MGType.h else "p", dtype))
+                S_hi, S_lo, ut, "h" if mgt == MGType.h else "p", dtype,
+                p_transfer=pt))
         else:
             rt_hi, rt_lo = poly_time[ntd_idx[l]], poly_time[ntd_idx[l - 1]]
             # the dense time matrix acts on the whole flat [T, n_u + n_p]
@@ -705,8 +721,11 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
     # pseudo-inverse either way (stfem_tpu gmg.py:944-957)
     coarse_null = None
     if not free_faces:
-        zp = np.zeros((int(np.prod(S0.cells)), S0.n_ploc_cell))
-        zp[:, 0] = 1.0           # DGP mode 0 = constant
+        if dg_pressure:
+            zp = np.zeros((int(np.prod(S0.cells)), S0.n_ploc_cell))
+            zp[:, 0] = 1.0       # DGP mode 0 = constant
+        else:
+            zp = S0.mask_p_np    # the constant on the active nodes
         z = np.concatenate([np.zeros(S0.n_u), zp.reshape(-1)])
         coarse_null = torch.as_tensor(z / np.linalg.norm(z), dtype=dtype,
                                       device=device)

@@ -6,14 +6,19 @@ Reference: the block PreconditionVanka (stmg.h:649-743) with M_mask =
 velocity-only, and MGTwoLevelBlockTransfer applied per variable
 (stmg.h:38-247); everything acts on the flat [T, n_u + n_p] Stokes
 vectors.  The time transfer needs no Stokes form: transfers.TimeTransfer
-mixes the leading time axis of the flat vector as it is.  The DGP-pressure
-case with strong, Nitsche or free faces is ported, on uniform, masked,
-non-uniform and mapped meshes (per-cell element matrices there; a removed
-cell's pressure modes have zero rows, which the patch inverse regularizes
-to the identity), with the strong or the weak obstacle; FE_Q pressure is
-not.
+mixes the leading time axis of the flat vector as it is.  Strong, Nitsche
+or free faces, on uniform, masked, non-uniform and mapped meshes
+(per-cell element matrices there; a removed cell's pressure modes have
+zero rows, which the patch inverse regularizes to the identity), with the
+strong or the weak obstacle.  With the continuous (FE_Q, Taylor-Hood)
+pressure a patch's u-p coupling is the assembled one, summed over the
+neighbour cells that share its nodes, its pressure rows are scaled by the
+nodes' valence, the patch matrices are pseudo-inverted (a coarse patch
+can be singular), and the pressure transfer is the nodal one.
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -65,6 +70,35 @@ def _band_flat(op: LaplaceMassOperator,
     band = band.reshape(op.dof_shape + (n_off,))
     band[..., (n_off - 1) // 2] += 1.0 - op.mask
     return band.reshape(-1)
+
+
+def _assemble_patch_up(E_up: torch.Tensor, cells, n_comp: int, ku: int,
+                       kp: int) -> torch.Tensor:
+    """The assembled rectangular u-p coupling of every cell patch for the
+    continuous (FE_Q) pressure (stfem_tpu stokes_level.py:24-63): entry
+    [gu, gp] sums the element contributions of every cell that holds both
+    dofs, so a patch is its element tensor plus the slices of its 3^dim - 1
+    neighbours' tensors at the shared faces, edges and corners, added
+    shift after shift in itertools.product order (no scatter).
+    E_up [C, n_comp (ku+1)^dim, (kp+1)^dim] -> the same shape."""
+    dim = len(cells)
+    E = E_up.reshape(tuple(cells) + (n_comp,) + (ku + 1,) * dim
+                     + (kp + 1,) * dim)
+    P = E.clone()
+    full = slice(None)
+    for delta in itertools.product((-1, 0, 1), repeat=dim):
+        if not any(delta):
+            continue
+        sides = [(full, full, full, full, full, full) if dd == 0 else
+                 (slice(0, cells[d] - 1), slice(1, None), slice(ku, ku + 1),
+                  slice(0, 1), slice(kp, kp + 1), slice(0, 1)) if dd == 1
+                 else (slice(1, None), slice(0, cells[d] - 1), slice(0, 1),
+                       slice(ku, ku + 1), slice(0, 1), slice(kp, kp + 1))
+                 for d, dd in enumerate(delta)]
+        dst_c, src_c, dst_u, src_u, dst_p, src_p = zip(*sides)
+        P[dst_c + (full,) + dst_u + dst_p] += E[src_c + (full,) + src_u
+                                                + src_p]
+    return P.reshape(E_up.shape)
 
 
 def patch_face_terms(S: StokesOperator, dtype):
@@ -124,8 +158,9 @@ class StokesVanka:
 
     Patch rows ordered by block index (variable-major BlockSlice: timestep,
     [u, p], timedof) with per-block spatial dofs = all cell u-dofs
-    (component-major) or all cell p-modes.  B = Alpha_st (x) K_blocks +
-    Beta_st (x) M_uu, valence-row-scaled, inverted batched at setup.
+    (component-major) or all cell p-modes (FE_Q: p-nodes).  B = Alpha_st
+    (x) K_blocks + Beta_st (x) M_uu, valence-row-scaled, inverted batched
+    at setup.
 
     When the slab tables are block-bidiagonal with identical per-step
     blocks (the DG/CGP multi-step assembly, fe_time.h:381-402) the patch
@@ -188,6 +223,11 @@ class StokesVanka:
                 self.n_steps = n_steps
 
         face_uu, E_up, E_pu, Kuu_off = patch_face_terms(S, dtype)
+        if not S.dg_pressure:
+            # the continuous pressure couples a patch to its neighbours'
+            # element tensors (stfem_tpu stokes_level.py:223-227)
+            E_up = _assemble_patch_up(E_up, cells, dim, k, S.p_degree)
+            E_pu = -E_up.transpose(1, 2)
         Muu_s = _band_flat(mass)[fidx]
         # block-diagonal over the components, rows/cols component-major
         Kuu = torch.zeros((C, dim, A_s, dim, A_s), dtype=dtype, device=dev)
@@ -226,11 +266,15 @@ class StokesVanka:
             return Bm
 
         # valence row scaling (u rows: spatial multiplicity; p rows: 1 for
-        # the cell-local DGP modes)
-        val = torch.as_tensor(dof_valence(cells, k), dtype=dtype, device=dev)
-        vl = cell_gather(val, cells, k).reshape(C, A_s)
-        vl_u = torch.cat([vl] * dim, dim=1)
-        vl_p = torch.ones((C, n_pl), dtype=dtype, device=dev)
+        # the cell-local DGP modes, the nodes' multiplicity for FE_Q)
+        def valence(kk):
+            val = torch.as_tensor(dof_valence(cells, kk), dtype=dtype,
+                                  device=dev)
+            return cell_gather(val, cells, kk).reshape(C, -1)
+
+        vl_u = torch.cat([valence(k)] * dim, dim=1)
+        vl_p = (torch.ones((C, n_pl), dtype=dtype, device=dev)
+                if S.dg_pressure else valence(S.p_degree))
 
         def vrows(nb):
             return torch.cat([vl_u if blk.decompose(i)[1] == 0 else vl_p
@@ -239,7 +283,15 @@ class StokesVanka:
         def invert(B):
             # regularize fully decoupled rows (degenerate coarse levels)
             zero_rows = (torch.amax(torch.abs(B), dim=2) == 0.0).to(dtype)
-            return torch.linalg.inv(B + torch.diag_embed(zero_rows))
+            B = B + torch.diag_embed(zero_rows)
+            if S.dg_pressure:
+                return torch.linalg.inv(B)
+            # FE_Q: a continuous-pressure patch can be singular (few free
+            # velocity dofs against the cell's pressure nodes on coarse
+            # levels); the pseudo-inverse drops those directions, which
+            # the neighbouring patches and the coarser levels cover
+            # (stfem_tpu stokes_level.py:287-299)
+            return torch.linalg.pinv(B, rtol=1e-6)
 
         if self.n_steps > 1:
             B1 = assemble(A0s, B0s, nb_step) * vrows(nb_step)
@@ -315,15 +367,23 @@ class StokesVanka:
 
 class StokesSpaceTransfer:
     """h- or p-transfer on the flat Stokes layout: separable 1D transfer on
-    each velocity component + exact DGP embedding for the pressure."""
+    each velocity component, and for the pressure the exact DGP embedding
+    or, for FE_Q, p_transfer: the nodal separable transfer under the
+    pressure masks."""
 
     def __init__(self, S_fine: StokesOperator, S_coarse: StokesOperator,
-                 u_transfer: SpaceTransfer, mg_type: str, dtype):
+                 u_transfer: SpaceTransfer, mg_type: str, dtype,
+                 p_transfer: SpaceTransfer | None = None):
         self.Sf, self.Sc = S_fine, S_coarse
         self.u_transfer = u_transfer
+        self.p_transfer = p_transfer
         self.mg_type = mg_type            # 'h' or 'p'
         dim, dev = S_fine.dim, S_fine.device
-        if mg_type == "h":
+        if not S_fine.dg_pressure:
+            if p_transfer is None:
+                raise ValueError("FE_Q pressure levels need a nodal "
+                                 "pressure SpaceTransfer")
+        elif mg_type == "h":
             assert S_fine.p_degree == S_coarse.p_degree
             self.Ech = torch.as_tensor(dgp_child_embedding(
                 dim, S_fine.p_degree), dtype=dtype, device=dev)
@@ -353,6 +413,8 @@ class StokesSpaceTransfer:
                 "abcdefg"[:dim])
 
     def _p_prolongate(self, pc):
+        if self.p_transfer is not None:
+            return self.p_transfer.prolongate(pc)
         if self.mg_type == "p":
             return torch.einsum("fm,...m->...f", self.Pp, pc)
         dim = self.Sf.dim
@@ -366,6 +428,8 @@ class StokesSpaceTransfer:
         return vals.permute(perm).reshape((T,) + self.Sf.cells + (m,))
 
     def _p_restrict(self, pf):
+        if self.p_transfer is not None:
+            return self.p_transfer.restrict(pf)
         if self.mg_type == "p":
             return torch.einsum("fm,...f->...m", self.Pp, pf)
         E, b = self._bits()

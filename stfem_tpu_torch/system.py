@@ -186,25 +186,30 @@ class SystemMatrix:
         table, x = promote(table, x)
         return torch.einsum("ji,i...->j...", table, x)
 
-    def _apply(self, x: torch.Tensor):
+    def _apply(self, x: torch.Tensor, mask_input: bool = True):
         if self.precision is not None:
             with full_precision():
-                return self._apply_impl(x)
-        return self._apply_impl(x)
+                return self._apply_impl(x, mask_input)
+        return self._apply_impl(x, mask_input)
 
-    def _apply_impl(self, x):
+    def _masked(self, x, mask_input: bool):
+        """x with its constrained dofs zeroed, or as it is (the strong
+        Dirichlet lift reads them, stfem_tpu system.py:239-352)."""
+        return x * self.K.mask if mask_input else x
+
+    def _apply_impl(self, x, mask_input=True):
         if self.route == "grid":
-            y = self._grid.apply(x * self.K.mask,
+            y = self._grid.apply(self._masked(x, mask_input),
                                  lambda v: self._mix(self.Alpha, v),
                                  lambda v: self._mix(self.Beta, v),
                                  self.alpha_is_zero, self.beta_is_zero)
             return self._zeros(x) if y is None else y * self.K.mask
         if self.route == "quad":
-            return self._apply_quad(x)
+            return self._apply_quad(x, mask_input)
         if self.route == "cell":
-            return self._apply_cell(x)
+            return self._apply_cell(x, mask_input)
         K, M = self.K, self.M
-        xin = x * K.mask
+        xin = self._masked(x, mask_input)
         cKK, cKM = K.laplace_scaling, K.mass_scaling
         cMK, cMM = M.laplace_scaling, M.mass_scaling
         az, bz = self.alpha_is_zero, self.beta_is_zero
@@ -239,7 +244,7 @@ class SystemMatrix:
         return torch.zeros((self.n_blocks,) + x.shape[1:], dtype=self.dtype,
                            device=self.device)
 
-    def _apply_cell(self, x):
+    def _apply_cell(self, x, mask_input=True):
         """Route "cell": stiffness K_op (laplace 1, mass 0) and mass M_op
         (1, 0) with their weights (jxw times the coefficient); x: [n_src,
         ..., *dofshape]."""
@@ -247,7 +252,7 @@ class SystemMatrix:
         dim = K.dim
         lead = x.shape[:x.ndim - dim]
         C, A = self._wM.shape[0], self._phi.shape[0]
-        u = (x * K.mask).reshape(lead + (-1,)).index_select(
+        u = self._masked(x, mask_input).reshape(lead + (-1,)).index_select(
             -1, self._idx).reshape(lead + (C, A))
         acc = None
         if not self.beta_is_zero:
@@ -265,13 +270,13 @@ class SystemMatrix:
         y = overlap_add(acc.reshape(acc.shape[:-2] + (-1,)), self._src, dim)
         return y.reshape(acc.shape[:-2] + tuple(K.dof_shape)) * K.mask
 
-    def _apply_quad(self, x):
+    def _apply_quad(self, x, mask_input=True):
         """cell_gather -> premix -> K5 -> cell_scatter -> mask."""
         K = self.K
         cells, k, dim = K.cells, K.degree, K.dim
         if x.ndim != dim + 1:
             raise ValueError("route quad takes [n_blocks, *dofshape]")
-        u = cell_gather(x * K.mask, cells, k).reshape(
+        u = cell_gather(self._masked(x, mask_input), cells, k).reshape(
             x.shape[0], K.mesh.n_cells, (k + 1) ** dim)
         ub = self._mix(self.Beta, u).contiguous()
         ua = self._mix(self.Alpha, u).contiguous()
@@ -280,20 +285,23 @@ class SystemMatrix:
         y = y.reshape((y.shape[0],) + tuple(cells) + (k + 1,) * dim)
         return cell_scatter(y, cells, k) * K.mask
 
-    def vmult(self, x: torch.Tensor):
+    def vmult(self, x: torch.Tensor, mask_input: bool = True):
         """x: [n_src_blocks, ..., *dofshape] -> [n_blocks, ..., *dofshape]
-        (extra axes between the block axis and the dof grid are batch)."""
+        (extra axes between the block axis and the dof grid are batch).
+        mask_input=False reads the constrained dofs of x too (the strong
+        Dirichlet lift rhs -= A x_g); the output rows stay masked on every
+        route."""
         if self._slice_reduced is not None and x.shape[0] == 1:
-            return self.vmult_slice(x[0])
-        return self._apply(x)
+            return self.vmult_slice(x[0], mask_input)
+        return self._apply(x, mask_input)
 
-    def vmult_slice(self, prev: torch.Tensor):
+    def vmult_slice(self, prev: torch.Tensor, mask_input: bool = True):
         """RHS assembly: dst_j = Alpha[j,0] K prev + Beta[j,0] M prev
         (reference vmult_slice_add, include/operators.h:585-611)."""
         if self._slice_reduced is not None:
-            y = self._slice_reduced.vmult_slice(prev)
+            y = self._slice_reduced.vmult_slice(prev, mask_input)
             out = torch.zeros((self.n_blocks,) + y.shape[1:], dtype=y.dtype,
                               device=y.device)
             out[list(self._slice_nz)] = y
             return out
-        return self._apply(prev[None])
+        return self._apply(prev[None], mask_input)

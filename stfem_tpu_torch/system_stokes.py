@@ -71,14 +71,17 @@ class StokesSystemMatrix:
         operator's dtype, stand for every cell ([P, 2P]); otherwise (a
         cell mask, axis steps or a vertex map) every cell has its own
         ([C, P, 2P], built in float64 on the operator's device).  _mloc
-        masks."""
+        masks the eliminated velocity dofs and, for FE_Q pressure, the
+        removed cells' pressure nodes; the overlap-add then sums the
+        shared velocity and (FE_Q) pressure nodes, as cell_scatter
+        would."""
         S, M = self.S, self.M
         if M.coefficient is not None or not np.array_equal(M.mask_np,
                                                            S.mask_u_np):
             raise ValueError("the element route needs a mass operator "
                              "without coefficient on the Stokes mask")
         dim, A = S.dim, (S.u_degree + 1) ** S.dim
-        P = dim * A + S.n_ploc
+        P = dim * A + S.n_ploc_cell
         if S.mesh.uniform:
             lo = np.asarray(S.mesh.lower, np.float64)
             mesh = StructuredMesh([1] * dim, lo, lo + np.asarray(S.mesh.h))
@@ -86,7 +89,8 @@ class StokesSystemMatrix:
         else:
             mesh, dev = S.mesh, self.device
         S1 = StokesOperator(mesh, S.u_degree, S.p_degree, S.n_q,
-                            S.viscosity, device=dev)
+                            S.viscosity, device=dev,
+                            dg_pressure=S.dg_pressure)
         M1 = LaplaceMassOperator(mesh, M.degree, M.n_q, M.mass_scaling,
                                  M.laplace_scaling, device=dev)
         E_uu, E_up, E_pu = S1.element_matrices(masked=False)
@@ -107,7 +111,8 @@ class StokesSystemMatrix:
         self._src = torch.as_tensor(src.reshape(-1), device=self.device)
         mflat = torch.cat([S.mask_u.reshape(-1).expand(dim, -1).reshape(-1),
                            torch.ones(S.n_p, dtype=self.dtype,
-                                      device=self.device)])
+                                      device=self.device) if S.dg_pressure
+                           else S.mask_p.reshape(-1)])
         self._mloc = mflat[self._lidx].reshape(lidx.shape)      # [C, P]
         # Nitsche faces and the weak obstacle: every face cell's [P, P]
         # face matrix, summed over the layers it lies in (a corner cell

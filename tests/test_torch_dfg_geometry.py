@@ -246,19 +246,29 @@ def test_functionals(grid):
 
 
 def test_still_raising():
-    """FE_Q pressure is not ported: it raises.  The weak obstacle and the
-    Navier modes, which raised until they were ported, build and apply
+    """What raised until it was ported now builds and applies: FE_Q
+    pressure on the masked square (its parity is
+    tests/test_torch_feq_pressure.py's), which still raises with the weak
+    obstacle, as stfem_tpu asserts; the weak obstacle and the Navier modes
     (their parity is tests/test_torch_weak_obstacle.py's and
     tests/test_torch_navier.py's); an unknown operator mode raises.  The
     Q1-interpolated vertex map is ported: it maps the vertex grid (its
     parity is tests/test_torch_distort.py's)."""
     from stfem_tpu_torch.stmg.gmg import build_stmg_stokes
     _, tm = GRIDS["square"](0)
-    with pytest.raises(NotImplementedError):
-        StokesOperator(tm, 2, 1, 3, NU, device="cpu", dg_pressure=False)
-    with pytest.raises(NotImplementedError):
-        build_stmg_stokes(tm, 1, TimeStepType.DG, 1, 1 / 16, device="cpu",
-                          dg_pressure=False)
+    Sq = StokesOperator(tm, 2, 1, 3, NU, device="cpu", dg_pressure=False,
+                        weak_faces=WEAK_2D, free_faces=FREE)
+    ru, rp = Sq.apply(torch.ones((2,) + Sq.dof_shape_u, dtype=torch.float64),
+                      torch.ones(Sq.p_shape, dtype=torch.float64))
+    assert torch.isfinite(ru).all() and torch.isfinite(rp).all()
+    assert rp.shape == Sq.p_shape == tm.dof_shape(1)
+    gq = build_stmg_stokes(tm, 1, TimeStepType.DG, 1, 1 / 16, device="cpu",
+                           dg_pressure=False, weak_faces=WEAK_2D,
+                           free_faces=FREE)
+    assert not any(lvl.matrix.S.dg_pressure for lvl in gq.levels)
+    with pytest.raises(ValueError):
+        StokesOperator(tm, 2, 1, 3, NU, device="cpu", dg_pressure=False,
+                       weak_obstacle=True)
     S = StokesOperator(tm, 2, 1, 3, NU, device="cpu", weak_faces=WEAK_2D,
                        free_faces=FREE, weak_obstacle=True)
     u = torch.ones((2,) + S.dof_shape_u, dtype=torch.float64)

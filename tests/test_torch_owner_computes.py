@@ -19,7 +19,15 @@ scatter-adds (torch's index_add_) they replace, on the CPU in float64:
   overlap-added along the axis) and the obstacle Vanka's face terms
   (stmg/stokes_level.py::patch_face_terms: the Nitsche layers and the
   obstacle faces on each cell): within 1e-14 of index_add_ over the
-  faces or planes, as stfem_tpu's .at[].add.
+  faces or planes, as stfem_tpu's .at[].add;
+- the continuous (FE_Q) pressure's sums: the overlap-add through
+  StokesOperator.local_maps (the shared pressure nodes with the
+  velocity), the neighbour-assembled Vanka coupling
+  (stmg/stokes_level.py::_assemble_patch_up: the patch rows and columns
+  of the coupling assembled by index_add_), the element route with its
+  Nitsche faces, and the FE_Q Vanka's scatter back: within 1e-14 of
+  index_add_ (the element route also within 1e-12 of the operator's
+  sum-factorised apply).
 Each target gathers its contributions in a fixed order and reduces them,
 or takes a single add, so no float atomics' order can vary a result from
 run to run; that the card's results repeat bitwise is chip_smoke.py's
@@ -33,8 +41,14 @@ from stfem_tpu_torch.mesh.grid import StructuredMesh
 from stfem_tpu_torch.ops.spatial import (LaplaceMassOperator, layer_sum,
                                          overlap_add)
 from stfem_tpu_torch.ops.stokes import StokesOperator
-from stfem_tpu_torch.stmg.stokes_level import _band_flat, patch_face_terms
+from stfem_tpu_torch.blocks import BlockSlice
+from stfem_tpu_torch.stmg.stokes_level import (StokesVanka,
+                                               _assemble_patch_up, _band_flat,
+                                               patch_face_terms)
 from stfem_tpu_torch.system_stokes import StokesSystemMatrix
+from stfem_tpu_torch.time.tables import (get_fe_time_weights_sequence,
+                                         get_fe_time_weights_stokes)
+from stfem_tpu_torch.types import TimeStepType
 from stfem_tpu_torch.utils.assembly import band_indices, layer_sources
 
 torch.set_num_threads(1)
@@ -282,3 +296,95 @@ def test_obstacle_vanka_face_terms(obstacle_op):
     got_off = torch.zeros_like(ref_off)
     got_off[oc] = off
     _close(got_off, ref_off)
+
+
+FEQ_MESHES = pytest.mark.parametrize("kind", ["square-2d", "cube-3d",
+                                              "dfg-2d"])
+
+
+def _feq_op(kind, weak=()):
+    """An FE_Q (Taylor-Hood Q2/Q1) operator: the unit square or cube at
+    refinement 1, or the masked DFG square at refinement 1."""
+    if kind == "dfg-2d":
+        mesh = dfg_square_mesh(1)
+    else:
+        dim = 2 if kind == "square-2d" else 3
+        mesh = StructuredMesh([2] * dim, [0.0] * dim, [1.0] * dim,
+                              refinement=1)
+    return StokesOperator(mesh, 2, 1, 3, 1.0, dtype=F64, device="cpu",
+                          dg_pressure=False, weak_faces=weak)
+
+
+@FEQ_MESHES
+def test_feq_local_overlap(kind):
+    """The FE_Q overlap-add through StokesOperator.local_maps (the element
+    route's and the Vanka's: velocity and the shared pressure nodes)
+    against index_add_ of every cell-local entry into the flat vector."""
+    S = _feq_op(kind)
+    lidx, src = S.local_maps()
+    C, W = lidx.shape
+    assert W == S.dim * 3 ** S.dim + 2 ** S.dim
+    y = torch.as_tensor(np.random.default_rng(C).standard_normal((2, C * W)))
+    ref = torch.zeros((2, S.n_u + S.n_p), dtype=F64)
+    ref.index_add_(1, torch.as_tensor(lidx.reshape(-1)), y)
+    _close(overlap_add(y, torch.as_tensor(src.reshape(-1)), S.dim), ref)
+
+
+@FEQ_MESHES
+def test_feq_patch_up(kind):
+    """_assemble_patch_up's neighbour sum against the assembled u-p
+    coupling (index_add_ of every cell's element tensor) restricted to
+    each patch's rows and columns."""
+    S = _feq_op(kind)
+    C, dim = S.mesh.n_cells, S.dim
+    A_u = 3 ** dim
+    _, E_up, _ = S.element_matrices()
+    lidx, _ = S.local_maps()
+    rows = lidx[:, :dim * A_u]                      # flat u dofs
+    cols = lidx[:, dim * A_u:] - S.n_u              # flat p nodes
+    G = torch.zeros(S.n_u * S.n_p, dtype=F64)
+    G.index_add_(0, torch.as_tensor(
+        (rows[:, :, None] * S.n_p + cols[:, None, :]).reshape(-1)),
+        E_up.reshape(-1))
+    G = G.reshape(S.n_u, S.n_p)
+    ref = torch.stack([G[torch.as_tensor(rows[c])][:, torch.as_tensor(
+        cols[c])] for c in range(C)])
+    _close(_assemble_patch_up(E_up, S.cells, dim, 2, 1), ref)
+
+
+@pytest.mark.parametrize("kind,weak", [("square-2d", ()),
+                                       ("square-2d", ((0, 0), (1, 1))),
+                                       ("dfg-2d", ())],
+                         ids=["square", "square-nitsche", "dfg"])
+def test_feq_element_route(kind, weak):
+    """The FE_Q element route (shared pressure nodes overlap-added)
+    against its faces added by index_add_, and against the operator's
+    own sum-factorised apply."""
+    S = _feq_op(kind, weak)
+    Mu = LaplaceMassOperator(S.mesh, 2, 3, 1.0, 0.0, dtype=F64, device="cpu",
+                             mask=S.mask_u_np)
+    a = np.array([[1.0, 0.2], [-0.3, 0.9]])
+    m = StokesSystemMatrix(S, Mu, a, 0.5 * a.T, route="element")
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (2, S.n_u + S.n_p)))
+    _close(m.vmult(x), element_vmult_by_index_add(m, x))
+    ref = StokesSystemMatrix(S, Mu, a, 0.5 * a.T).vmult(x)
+    _close(m.vmult(x), ref, 1e-12)
+
+
+@FEQ_MESHES
+def test_feq_vanka_scatter(kind):
+    """The FE_Q Vanka's patch gather and its scatter back (one index
+    gather each way) against index_add_ of every patch entry."""
+    S = _feq_op(kind)
+    Mu = LaplaceMassOperator(S.mesh, 2, 3, 1.0, 0.0, dtype=F64, device="cpu",
+                             mask=S.mask_u_np)
+    A, B = get_fe_time_weights_sequence(
+        TimeStepType.DG, 0.125, 2, [], [1],
+        weight_fn=get_fe_time_weights_stokes)[0][:2]
+    v = StokesVanka(S, Mu, A, B, BlockSlice(2, 2, 2), dtype=F64)
+    y = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        v._pidx.numel()))
+    ref = torch.zeros(v._T * v._n, dtype=F64)
+    ref.index_add_(0, v._pidx, y)
+    _close(overlap_add(y, v._src, S.dim), ref)
