@@ -212,6 +212,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      within 2x of the stop test, the constrained dofs equal to g (1e-12),
      the L2-L2 rate >= 1.8, K1-K4 launching at the finest refinement.
      FEQ_CUTS and DIRICHLET_CUTS list the refinements whose march is cut.
+ 18. bench.py's switches (switches_phase): (a) bench_heat.run at 8^3
+     cells, 8 steps a slab, the probe and 1 timed slab, at the defaults,
+     with outer fgmres, with ir off (the float32-only FGMRES to a Givens
+     1e-8), with outer chebyshev, with nopost_fine and post_inner 1,
+     variable with vcap 2, smoothall, and the bf16 Vanka on float32
+     levels (K4's float32-vector, bf16-matrix instance, also held against
+     its plain version): the iterations and walls, every IR slab at TRUE
+     <= 1e-8, K1-K4 launching (launches_by_path "switches"); (b) python
+     -m stfem_tpu_torch.bench at heat 8^3, wave 4^3, Stokes 4^3, 1 slab
+     each, in a subprocess: exit 0, all three sections in the summary,
+     the heat metric last; (c) the bench's 16^3 heat hierarchy built
+     twice with a fresh estimate cache: no estimate the second time,
+     bitwise-equal omegas, both setup times; (d) a one-rank NCCL group:
+     make_sharded_vmult bitwise SystemMatrix.vmult, psum_dot the plain
+     dot.  Phases 1-17 run with STFEM_EIG_CACHE=0 (no estimate cache);
+     18(a) and (b) share a fresh cache file (the cases whose levels are
+     alike estimate once), 18(c) has its own.
 Then it prints the smoke's total wall, the nvidia-smi line, a JSON line
 describing the kernels (launches over all main paths and by path), and,
 last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -2063,6 +2080,210 @@ def dirichlet_heat_phase(wrappers, dev, refinements=(2, 3, 4, 5),
     return total
 
 
+# phase 18(a): bench_heat's switches at 8^3 cells, 8 steps a slab
+SWITCH_CASES = (("defaults", {}), ("outer fgmres", {"outer": "fgmres"}),
+                ("ir off", {"ir": False}),
+                ("outer chebyshev", {"outer": "chebyshev"}),
+                ("nopost_fine, post_inner 1", {"nopost_fine": True,
+                                               "post_inner": 1}),
+                ("variable, vcap 2", {"variable": True, "vcap": 2}),
+                ("smoothall", {"smoothall": True}),
+                ("bf16 Vanka, float32 levels", {"bf16": True,
+                                                "level_bf16": False}))
+
+
+def switches_phase(wrappers, dev) -> dict:
+    """Phase 18: bench.py's switches, the combined bench, the estimate
+    cache and a one-rank NCCL group.  (a) bench_heat.run at 8^3 cells, 8
+    steps a slab, the probe and 1 timed slab, for each of SWITCH_CASES:
+    the iterations (first solve and total), the setup, probe and slab
+    walls; every IR run reaches TRUE <= 1e-8, the float32-only run its
+    Givens 1e-8; the bf16-Vanka run's finest Vanka dtypes, and K4 on that
+    case's (float32 vectors, bf16 matrices) instance against its plain
+    version.  (b) python -m stfem_tpu_torch.bench at reduced sizes (heat
+    8^3, wave 4^3, Stokes 4^3, 1 timed slab each) in a subprocess: exit
+    code 0, the summary with all three sections, the heat metric line
+    last.  (c) the bench's 16^3 heat hierarchy built twice with a fresh
+    cache file: the second build runs no estimate and gives bitwise-equal
+    omegas; both setup times.  (d) a one-rank NCCL group:
+    make_sharded_vmult equals SystemMatrix.vmult bitwise, psum_dot the
+    plain dot.  Returns (a)'s launches; K1, K2, K3 and K4 must launch."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    from stfem_tpu_torch import bench_heat
+    from stfem_tpu_torch.mesh.grid import StructuredMesh
+    from stfem_tpu_torch.ops.grid_chain import (chain_down,
+                                                chain_down_reference,
+                                                chain_up, chain_up_reference)
+    from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
+    from stfem_tpu_torch.parallel.comm import psum_dot
+    from stfem_tpu_torch.parallel.halo import make_sharded_vmult
+    from stfem_tpu_torch.parallel.sharding import spatial_mesh
+    from stfem_tpu_torch.stmg.gmg import bench_params, build_stmg
+    from stfem_tpu_torch.system import SystemMatrix
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+
+    t_phase = time.time()
+    # (a) the switches, through one estimate cache that (b) reads too: the
+    # cases whose levels are alike estimate once
+    cache_dir = tempfile.TemporaryDirectory()
+    os.environ["STFEM_EIG_CACHE"] = os.path.join(cache_dir.name, "a.json")
+    for w in wrappers.values():
+        w.launches = 0
+    for label, kw in SWITCH_CASES:
+        info, _ = bench_heat.run(8, 8, n_slabs=1, device="cuda", **kw)
+        ir = kw.get("ir", True)
+        print(f"# switches {label}: outer {info['outer']}, V-cycles "
+              f"{info['iters']} (first solve {info['first_iters']}), TRUE "
+              f"rel {info['true_rels']}, converged {info['converged']}, "
+              f"setup {info['setup_s']:.2f} s, probe {info['probe_s']:.2f} "
+              f"s, slab {[round(t, 4) for t in info['slab_s']]} s, "
+              f"{info['dofs_per_s']:.4e} DoF/s, estimates "
+              f"{info['estimates']}, fine Vanka "
+              f"{info['fine_vanka']}"
+              + (f", rho {info['rho']:.4f}" if info["rho"] else ""),
+              flush=True)
+        ok = info["converged"] and (
+            not ir or all(r <= 1e-8 for r in info["true_rels"]))
+        if not ok:
+            raise AssertionError(f"switches {label}: not converged")
+        if kw.get("level_bf16") is False:
+            fine = info["fine_vanka"]
+            if (fine["vectors"], fine["matrices"]) != ("float32",
+                                                       "bfloat16"):
+                raise AssertionError(f"bf16 Vanka on float32 levels: {fine}")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    print(f"# switches (a) launches {counts}", flush=True)
+    missing = [n for n in ("time_solve", "kron_pair", "banded_apply",
+                           "chain_down", "chain_up") if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"switches: kernels never ran: {missing}")
+    # the K4 instance of the bf16-Vanka run: float32 vectors, bf16
+    # matrices, at its finest level (24 blocks x 33^3 <-> 40^3)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    k, nc, cells = 4, 8, (8,) * 3
+    dn = [_vanka_band(nc, k, gen, dev).to(torch.bfloat16) for _ in range(3)]
+    up = [_vanka_band(nc, k, gen, dev).T.contiguous().to(torch.bfloat16)
+          for _ in range(3)]
+    x = torch.randn((24,) + (nc * k + 1,) * 3, generator=gen, device=dev)
+    w = chain_down(x, dn, cells=cells, k=k)
+    y = chain_up(w, up, cells=cells, k=k)
+    rel = max(float((w - chain_down_reference(x, dn)).abs().max()
+                    / chain_down_reference(x, dn).abs().max()),
+              float((y - chain_up_reference(w, up)).abs().max()
+                    / chain_up_reference(w, up).abs().max()))
+    print(f"# K4 grid_chain float32 vectors, bf16 matrices, 24 x 33^3 <-> "
+          f"40^3: {w.dtype} / {y.dtype} out, rel to max {rel:.3e} (tol "
+          f"1e-5)", flush=True)
+    if not rel <= 1e-5 or w.dtype != torch.float32:
+        raise AssertionError("K4 (float32, bf16) disagrees with its plain "
+                             "version")
+    phase_wall(t_phase, "18(a)")
+
+    # (b) the combined bench in a subprocess
+    t0 = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "stfem_tpu_torch.bench", "--cells", "8",
+           "--ntao", "8", "--slabs", "1", "--wave-cells", "4", "--wave-ntao",
+           "4", "--wave-slabs", "1", "--stokes-cells", "4", "--stokes-ntao",
+           "4", "--stokes-slabs", "1"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ))
+    os.environ["STFEM_EIG_CACHE"] = "0"
+    cache_dir.cleanup()
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"stfem_tpu_torch.bench exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    head = "# ---- bench summary (all sections; heat metric last) ----"
+    summary = [json.loads(t) for t in lines[lines.index(head) + 1:]]
+    metrics = {d["metric"]: d["value"] for d in summary if "metric" in d}
+    last = json.loads(lines[-1])
+    print(f"# combined bench (heat 8^3, wave 4^3, Stokes 4^3, 1 slab each):"
+          f" exit {proc.returncode} in {time.time() - t0:.1f} s; summary "
+          f"{len(summary)} lines; metrics {metrics}", flush=True)
+    for line in lines:
+        if line.startswith("# ") and "skipped" in line:
+            print(f"#   {line}", flush=True)
+    want = {bench_heat.METRIC, "stmg_wave_slab_solve_throughput_3d_q4_dg2",
+            "stmg_stokes_slab_solve_throughput_3d_q2_dgp1_dg1"}
+    if set(metrics) != want or last.get("metric") != bench_heat.METRIC \
+            or sum("metric" not in d for d in summary) != 3:
+        raise AssertionError("combined bench: summary or last line wrong")
+    phase_wall(t_phase, "18(b)")
+
+    # (c) the estimate cache on the bench's 16^3 heat hierarchy
+    mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=3)
+    builds = []
+    with tempfile.TemporaryDirectory() as tmpd:
+        os.environ["STFEM_EIG_CACHE"] = os.path.join(tmpd, "eig.json")
+        try:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                gmg = build_stmg(mesh, 2, 4, TimeStepType.DG, 32, 1 / 16,
+                                 bench_params(), dtype=torch.float32,
+                                 device="cuda")
+                torch.cuda.synchronize()
+                builds.append((time.time() - t0, dict(gmg.estimates),
+                               [getattr(lvl.smoother, "omega", None)
+                                for lvl in gmg.levels]))
+                del gmg
+        finally:
+            os.environ["STFEM_EIG_CACHE"] = "0"
+    (s1, e1, o1), (s2, e2, o2) = builds
+    print(f"# estimate cache, 16^3 heat hierarchy: setup {s1:.2f} s "
+          f"(estimates {e1}) then {s2:.2f} s ({e2}); omegas {o1} and {o2}",
+          flush=True)
+    if e2["computed"] != 0 or e2["read"] != e1["computed"] or o1 != o2 \
+            or e1["computed"] == 0:
+        raise AssertionError("estimate cache: the second build estimated or "
+                             "its omegas differ")
+    phase_wall(t_phase, "18(c)")
+
+    # (d) a one-rank NCCL group
+    with tempfile.TemporaryDirectory() as tmpd:
+        dist.init_process_group("nccl", init_method=f"file://{tmpd}/init",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=60))
+        try:
+            dm = spatial_mesh(1, dim=3, device_type="cuda")
+            groups = (dm.get_group("x"), dm.get_group("y"))
+            m8 = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3,
+                                refinement=2)
+            A, B, _, _ = get_fe_time_weights(TimeStepType.DG, 2, 1 / 16, 8)
+            K, M = (LaplaceMassOperator(m8, 4, 5, ms, ls, dtype=torch.float64,
+                                        device=dev)
+                    for ms, ls in ((0.0, 1.0), (1.0, 0.0)))
+            mat = SystemMatrix(K, M, A, B)
+            x = torch.randn((A.shape[0],) + m8.dof_shape(4), generator=gen,
+                            device=dev, dtype=torch.float64)
+            y_sh = make_sharded_vmult(mat, groups)(x)
+            y = mat.vmult(x)
+            dot_sh = psum_dot(x, y, groups, (1, 2))
+            dot = torch.sum(x * y)
+            same = bool(torch.equal(y_sh, y))
+            print(f"# one-rank NCCL group ({dist.get_backend()}, mesh "
+                  f"{tuple(dm.mesh.shape)}): make_sharded_vmult == "
+                  f"SystemMatrix.vmult bitwise {same} ({A.shape[0]} x "
+                  f"33^3 FP64); psum_dot {float(dot_sh)!r} plain dot "
+                  f"{float(dot)!r}", flush=True)
+            if not (same and bool(torch.equal(dot_sh, dot))):
+                raise AssertionError("one-rank NCCL: sharded apply or dot "
+                                     "differs")
+        finally:
+            dist.destroy_process_group()
+    phase_wall(t_phase, "18")
+    return counts
+
+
+def phase_wall(t_phase: float, name: str) -> None:
+    print(f"#   (phase {name} at {time.time() - t_phase:.1f} s)", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2099,6 +2320,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
     dev = torch.device("cuda")
+    # phases 1-17 estimate afresh (no estimate disk cache): their numbers
+    # stay what they were; phase 18(c) measures the cache
+    os.environ["STFEM_EIG_CACHE"] = "0"
     smi = _smi_line()
     t_start = time.time()
 
@@ -2573,6 +2797,13 @@ def main() -> int:
         for name, c in by_path[label].items():
             launches[name] += c
     phase_done("feq and dirichlet heat")
+
+    # 18. bench.py's switches on the heat bench, the combined bench, the
+    #     estimate cache, a one-rank NCCL group
+    by_path["switches"] = switches_phase(wrappers, dev)
+    for name, c in by_path["switches"].items():
+        launches[name] += c
+    phase_done("switches")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

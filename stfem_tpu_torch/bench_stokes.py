@@ -1,12 +1,13 @@
 """Stokes slab-solve throughput bench: the port of bench.py's
-run_stokes_bench, iterative-refinement branch (bench.py:199-432), at its
-defaults.
+run_stokes_bench (bench.py:79-475), with its STFEM_BENCH_STOKES_*
+switches.
 
 3D Stokes, Q2^3 velocity x DGP1 modal pressure (n_q = 3), viscosity 1,
 homogeneous Dirichlet velocity, dG(1) in time (tau = 1/16), `cells`^3
 cells (default 8: 14,739 velocity + 2,048 pressure DoFs), `ntao` time
 steps per slab (default 8: 16 time blocks, 268,592 space-time DoFs per
-slab).  Every slab is solved to a TRUE relative residual <= 1e-8 by
+slab).  At the defaults every slab is solved to a TRUE relative residual
+<= 1e-8 by
   1. a float32 preconditioned-Richardson first solve with the float32
      Stokes STMG V-cycle (block Vanka, variable smoothing, pseudo-inverse
      coarse solve), rhs = the float32 rhs coupling + the rounded force,
@@ -17,30 +18,33 @@ slab).  Every slab is solved to a TRUE relative residual <= 1e-8 by
      and the FP64 update;
   3. an untimed FP64 TRUE-residual check, which gates `converged`.
 The floor is the larger of the first solves' TRUE residuals on probe
-slabs 0 and 1 (slab 1 starts from slab 0's carry), and rtol1 =
-max(1.4 floor, 1e-8), ir_rtol = clip(0.5e-8 / floor, 1e-7, 2e-3).  The
-next slab starts from the last time block with its pressure shifted to
-zero mean per block (the DGP constant mode), in FP64.  A floor above 1e-3
-(a non-contractive V-cycle) is reported and raises: stfem_tpu's float32
-FGMRES fallback is not ported.
+slabs 0 and 1 (slab 1 starts from slab 0's carry; one probe slab when
+the run has one slab), and rtol1 = max(1.4 floor, 1e-8), ir_rtol =
+clip(0.5e-8 / floor, 1e-7, 2e-3).  The next slab starts from the last
+time block with its pressure shifted to zero mean per block (the DGP
+constant mode), in FP64.  A floor above 1e-3 (a non-contractive V-cycle)
+falls back to bench.py's float32-only mode, as ir off does: one float32
+solve a slab to a TRUE residual of `target` (Richardson or restarted
+FGMRES), gated by the untimed FP64 residual.
 
-Prints one info JSON line and, last, the metric JSON line (same name as
-bench.py's Stokes metric; the number is this device's own).
+Prints one info JSON line and, last, the metric JSON line (same name and
+unit as bench.py's Stokes metric; the number is this device's own).
 
     python -m stfem_tpu_torch.bench_stokes [--cells 8] [--ntao 8]
-        [--slabs 6] [--device cuda] [--profile]
+        [--slabs 6] [--device cuda] [--profile] [switches]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from .bench_heat import _sync, profile_slab
-from .krylov import richardson_solve
+from .krylov import fgmres, richardson_solve
 from .mesh.fe import shape_data_1d
 from .mesh.grid import StructuredMesh
 from .ops.spatial import LaplaceMassOperator, _sumfac, cell_scatter
@@ -49,13 +53,43 @@ from .ops.stokes_residual import build_stokes_residual64
 from .stmg.gmg import GMGParams, build_stmg_stokes
 from .system_stokes import StokesSystemMatrix
 from .time.tables import get_fe_time_weights, get_time_quad
-from .types import TimeStepType
+from .types import SupportedSmoothers, TimeStepType
 from .utils.precision import full_precision
+from .utils.switches import Switch, add_switches, switch_kwargs
 
 METRIC = "stmg_stokes_slab_solve_throughput_3d_q2_dgp1_dg1"
 UNIT = "space-time DoF/s/chip (TRUE rel 1e-8 slab solves, FP64 IR)"
+UNIT_F32 = "space-time DoF/s/chip (f32 slab solves, true rel <= {})"
 FE_DEGREE, U_DEGREE, P_DEGREE, N_Q, TAU = 1, 2, 1, 3, 1.0 / 16.0
+
 MAXITER = 60
+
+_B = "STFEM_BENCH_STOKES_"
+SWITCHES = (
+    Switch("cells", _B + "CELLS", "cells", int, 8, "cells per axis"),
+    Switch("ntao", _B + "NTAO", "ntao", int, 8, "time steps per slab"),
+    Switch("slabs", _B + "SLABS", "n_slabs", int, 6, "timed slabs"),
+    Switch("smoother", _B + "SMOOTHER", "smoother", str, "Relaxation",
+           "Relaxation or Chebyshev (smoother)"),
+    Switch("inner", _B + "INNER", "inner", int, None,
+           "sweeps per smoother application (smoother_inner_iterations)"),
+    Switch("range", _B + "RANGE", "smoothing_range", float, 5.0,
+           "smoothing range (smoothing_range)"),
+    Switch("steps", _B + "STEPS", "steps", int, 1,
+           "MG smoothing steps (smoothing_steps)"),
+    Switch("coarse", _B + "COARSE", "coarse", str, "Smoother",
+           "coarse solve past the pseudo-inverse's size "
+           "(coarse_grid_smoother_type)"),
+    Switch("maxiter", _B + "MAXITER", "maxiter", int, MAXITER,
+           "outer iterations per solve"),
+    Switch("target", _B + "TARGET", "target", float, 1e-5,
+           "TRUE residual of the float32-only mode"),
+    Switch("ir", _B + "IR", "ir", "bool", True,
+           "FP64 iterative refinement to TRUE 1e-8 (off: float32 only)"),
+    Switch("outer", _B + "OUTER", "outer", str, "richardson",
+           "float32-only mode: richardson or fgmres"),
+    Switch("restart", _B + "RESTART", "restart", int, 20,
+           "float32-only FGMRES: basis size per cycle"))
 
 
 def force_slab(mesh, S64, t_rows, scales):
@@ -104,14 +138,24 @@ def mean_normalize(S, x):
 
 
 def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
-        profile: bool = False):
+        profile: bool = False, *, smoother: str = "Relaxation",
+        inner: int | None = None, smoothing_range: float = 5.0,
+        steps: int = 1, coarse: str = "Smoother", maxiter: int = MAXITER,
+        target: float = 1e-5, ir: bool = True, outer: str = "richardson",
+        restart: int = 20):
     """Set up, probe and march n_slabs slabs.  Returns (info dict with the
     metric value under "dofs_per_s", last slab's FP64 solution
     [T, n_u + n_p]).  profile=True solves the last slab once more,
     untimed, under torch.profiler and adds its summary as
-    info["profile"]."""
-    if n_slabs < 2:
-        raise ValueError("the probe needs at least 2 slabs")
+    info["profile"].  The keyword arguments are bench.py's Stokes
+    switches (SWITCHES), with its defaults: the V-cycle's GMGParams
+    fields, the Richardson iterations, and the float32-only mode (ir
+    off, or an IR probe floor above 1e-3): one float32 solve a slab to a
+    TRUE residual of `target`, by Richardson (to 0.5 target) or by
+    FGMRES(`restart`) cycles on the true residual, ceil(maxiter /
+    restart) at most (bench.py:240-290)."""
+    if outer not in ("richardson", "fgmres"):
+        raise ValueError(f"outer: richardson or fgmres, not {outer!r}")
     device = torch.device(device)
     f32, f64 = torch.float32, torch.float64
     dg = TimeStepType.DG
@@ -130,10 +174,14 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
     matrix = StokesSystemMatrix(S, Mu, a, b)
     rhs_matrix = StokesSystemMatrix(S, Mu, a, b, gamma=None, zeta=g)
     # bench.py:143-156: GMGParams' defaults with tf01stokes's smoothing
-    # range
-    gmg = build_stmg_stokes(mesh, FE_DEGREE, dg, ntao, TAU,
-                            params=GMGParams(smoothing_range=5.0), dtype=f32,
-                            device=device)
+    # range, unless the switches say otherwise
+    params = GMGParams(smoother=SupportedSmoothers[smoother],
+                       smoothing_range=smoothing_range,
+                       smoothing_steps=steps,
+                       smoother_inner_iterations=inner,
+                       coarse_grid_smoother_type=coarse)
+    gmg = build_stmg_stokes(mesh, FE_DEGREE, dg, ntao, TAU, params=params,
+                            dtype=f32, device=device)
     _sync(device)
     print(f"# setup/hierarchy {time.time() - t_setup:.1f}s", flush=True)
     S64 = StokesOperator(mesh, U_DEGREE, P_DEGREE, N_Q, 1.0, dtype=f64,
@@ -156,14 +204,17 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
 
     def solve(rhs, x0, reltol):
         return richardson_solve(matrix.vmult, rhs, x0, gmg.vmult,
-                                maxiter=MAXITER, reltol=reltol)
+                                maxiter=maxiter, reltol=reltol)
+
+    def first_rhs(i, prev64):
+        pu, pp = S.unpack(prev64.to(f32))
+        return rhs_matrix.vmult_slice(pu, pp) + forces[i].to(f32)
 
     def solve_slab(i, prev64, rtol1, ir_rtol):
         """First solve + one IR pass of slab i -> (x64, V-cycles, the
         first solve's TRUE ||r|| / ||rhs||)."""
-        pu, pp = S.unpack(prev64.to(f32))
-        rhs = rhs_matrix.vmult_slice(pu, pp) + forces[i].to(f32)
-        res = solve(rhs, prev64.to(f32).expand(T, n_flat), rtol1)
+        res = solve(first_rhs(i, prev64), prev64.to(f32).expand(T, n_flat),
+                    rtol1)
         x64 = res.x.to(f64)
         r, rn, bn = resid.residual(prev64, x64, forces[i])
         # a zero residual needs no correction (and must not be divided by)
@@ -173,6 +224,25 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
         x64 = x64 + rn * corr.x.to(f64)
         return x64, res.iterations + corr.iterations, float(rn) / float(bn)
 
+    def solve_slab_f32(i, prev64, *_):
+        """The float32-only solve of slab i -> (x64, V-cycles, None)."""
+        rhs = first_rhs(i, prev64)
+        x = prev64.to(f32).expand(T, n_flat)
+        if outer == "richardson":
+            res = solve(rhs, x, 0.5 * target)
+            return res.x.to(f64), res.iterations, None
+        bnorm = torch.linalg.vector_norm(rhs)
+        zero32 = torch.zeros((T, n_flat), dtype=f32, device=device)
+        its = 0
+        for _ in range(-(-maxiter // restart)):
+            r = rhs - matrix.vmult(x)
+            if float(torch.linalg.vector_norm(r) / bnorm) <= target:
+                break
+            res = fgmres(matrix.vmult, r, zero32, gmg.vmult,
+                         maxiter=restart, abstol=1e-30, reltol=1e-9)
+            x, its = x + res.x, its + res.iterations
+        return x.to(f64), its, None
+
     def carry(x64):
         return mean_normalize(S64, x64)[-1].contiguous()
 
@@ -180,31 +250,34 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
     # a nonzero previous value have another float32 floor (bench.py:351-369)
     t_probe = time.time()
     zero = torch.zeros(n_flat, dtype=f64, device=device)
-    xp, _, floor = solve_slab(0, zero, 1e-8, 2.0)
-    floors = [floor]
-    if np.isfinite(floor) and floor <= 1e-3:
-        floors.append(solve_slab(1, carry(xp), 1e-8, 2.0)[2])
-    floor = max(floors) if all(np.isfinite(floors)) else float("nan")
+    floor = floors = rtol1 = ir_rtol = None
+    if ir:
+        xp, _, floor = solve_slab(0, zero, 1e-8, 2.0)
+        floors = [floor]
+        if np.isfinite(floor) and floor <= 1e-3 and n_slabs > 1:
+            floors.append(solve_slab(1, carry(xp), 1e-8, 2.0)[2])
+        floor = max(floors) if all(np.isfinite(floors)) else float("nan")
+        if np.isfinite(floor) and floor <= 1e-3:
+            rtol1 = max(1.4 * floor, 1e-8)
+            ir_rtol = min(max(0.5e-8 / max(floor, 1e-12), 1e-7), 2e-3)
+            print(f"# stokes probe: floors {floors} -> rtol1 {rtol1:.3e}, "
+                  f"ir_rtol {ir_rtol:.3e}", flush=True)
+        else:
+            print(f"# stokes IR probe floor {floor:.3e} (non-contractive "
+                  "V-cycle?) -- falling back to the float32-only path",
+                  flush=True)
+            ir = False
     _sync(device)
     probe_s = time.time() - t_probe
-    if not (np.isfinite(floor) and floor <= 1e-3):
-        print(json.dumps(dict(problem="stokes3d", converged=False,
-                              probe_floor=floor, probe_floors=floors)),
-              flush=True)
-        raise RuntimeError(f"stokes probe floor {floor:.3e}: the V-cycle is "
-                           "not contractive under Richardson (the float32 "
-                           "FGMRES fallback is not ported)")
-    rtol1 = max(1.4 * floor, 1e-8)
-    ir_rtol = min(max(0.5e-8 / max(floor, 1e-12), 1e-7), 2e-3)
-    print(f"# stokes probe: floors {floors} -> rtol1 {rtol1:.3e}, ir_rtol "
-          f"{ir_rtol:.3e}  ({probe_s:.1f}s)", flush=True)
+    slab_fn = solve_slab if ir else solve_slab_f32
+    bar = 1e-8 if ir else target
 
     prev64 = zero
     iters, rels, times, cpu = [], [], [], []
     for i in range(n_slabs):
         _sync(device)
         t0, c0 = time.time(), time.thread_time()
-        x64, its, _ = solve_slab(i, prev64, rtol1, ir_rtol)
+        x64, its, _ = slab_fn(i, prev64, rtol1, ir_rtol)
         _sync(device)
         times.append(time.time() - t0)
         cpu.append(time.thread_time() - c0)
@@ -214,7 +287,7 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
         iters.append(its)
         last_inputs = (i, prev64, rtol1, ir_rtol)
         prev64 = carry(x64)
-    prof = (profile_slab(lambda: solve_slab(*last_inputs), device)
+    prof = (profile_slab(lambda: slab_fn(*last_inputs), device)
             if profile else None)
 
     solve_s = float(np.sum(times))
@@ -224,9 +297,10 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
         device=(torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu"),
         cells=mesh.n_cells, u_dofs=S.n_u, p_dofs=S.n_p, n_blocks=T,
-        slabs=n_slabs, avg_iters=float(np.mean(iters)), iters=iters,
+        slabs=n_slabs, ir=ir, outer="richardson" if ir else outer,
+        target=bar, avg_iters=float(np.mean(iters)), iters=iters,
         true_rel_residual=max(rels), true_rels=rels,
-        converged=bool(all(r <= 1e-8 for r in rels)),
+        converged=bool(all(r <= bar for r in rels)),
         setup_s=setup_s, probe_s=probe_s, solve_s=solve_s, slab_s=times,
         slab_host_cpu_s=cpu,
         probe_floor=floor, probe_floors=floors, rtol1=rtol1,
@@ -239,16 +313,19 @@ def run(cells: int = 8, ntao: int = 8, n_slabs: int = 6, device="cuda",
 
 
 def metric_line(info: dict) -> dict:
-    return {"metric": METRIC, "value": info["dofs_per_s"], "unit": UNIT,
+    unit = UNIT if info["ir"] else UNIT_F32.format(
+        f"{info['target']:g}".replace("e-0", "e-"))
+    return {"metric": METRIC, "value": info["dofs_per_s"], "unit": unit,
             "vs_baseline": info["dofs_per_s"] / 1.0e9,
             "device": info["device"]}
 
 
-def main(argv=None):
+def main(argv=None, environ=None):
+    """The command line; each switch's default reads its
+    STFEM_BENCH_STOKES_* variable from environ (os.environ)."""
+    environ = os.environ if environ is None else environ
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cells", type=int, default=8)
-    ap.add_argument("--ntao", type=int, default=8)
-    ap.add_argument("--slabs", type=int, default=6)
+    add_switches(ap, SWITCHES, environ)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra, untimed slab solve")
@@ -256,8 +333,8 @@ def main(argv=None):
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("bench_stokes: no CUDA device (the bench measures "
                          "the GPU; pass --device cpu for a functional run)")
-    info, _ = run(args.cells, args.ntao, args.slabs, args.device,
-                  profile=args.profile)
+    info, _ = run(device=args.device, profile=args.profile,
+                  **switch_kwargs(args, SWITCHES))
     print(json.dumps(info), flush=True)
     if not info["converged"]:
         raise SystemExit("bench_stokes: NOT converged -- metric withheld")

@@ -1,5 +1,8 @@
 """Acoustic-wave slab-solve throughput bench: the port of bench.py's
-run_wave_bench at its defaults.
+run_wave_bench, with its STFEM_BENCH_WAVE_* switches (SWITCHES: the
+level and Vanka bf16, the smoothing range, the sweeps per smoother
+application, the Richardson iterations, the converged Arnoldi estimates
+and the proxy estimates).
 
 3D acoustic wave on the Schur-reduced second-order formulation (the
 velocity eliminated, reference include/time_integrators.h:400-447), Q4 in
@@ -27,12 +30,13 @@ Prints one info JSON line and, last, the metric JSON line (same name and
 unit as bench.py's wave metric; the number is this device's own).
 
     python -m stfem_tpu_torch.bench_wave [--cells 8] [--ntao 16]
-        [--slabs 6] [--device cuda] [--profile]
+        [--slabs 6] [--device cuda] [--profile] [switches]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -51,6 +55,7 @@ from .system import SystemMatrix
 from .time.tables import (get_fe_time_weights, get_fe_time_weights_wave,
                           get_time_quad)
 from .types import ProblemType, TimeStepType
+from .utils.switches import Switch, add_switches, switch_kwargs
 
 METRIC = "stmg_wave_slab_solve_throughput_3d_q4_dg2"
 UNIT = ("space-time DoF/s/chip (rel 1e-8 slab solves incl. "
@@ -58,13 +63,35 @@ UNIT = ("space-time DoF/s/chip (rel 1e-8 slab solves incl. "
 FE_DEGREE, SPACE_DEGREE, TAU, FREQ = 2, 4, 1.0 / 16.0, 1.0
 MAXITER = 40
 
+_B = "STFEM_BENCH_WAVE_"
+SWITCHES = (
+    Switch("cells", _B + "CELLS", "cells", int, 8, "cells per axis"),
+    Switch("ntao", _B + "NTAO", "ntao", int, 16, "time steps per slab"),
+    Switch("slabs", _B + "SLABS", "n_slabs", int, 6, "timed slabs"),
+    Switch("bf16", _B + "BF16", "bf16", "bool", True,
+           "bf16 levels and Vanka matrices (level_bf16, vanka_bf16)"),
+    Switch("range", _B + "RANGE", "smoothing_range", float, 1.0,
+           "smoothing range (smoothing_range)"),
+    Switch("inner", _B + "INNER", "inner", int, 2,
+           "sweeps per smoother application (smoother_inner_iterations)"),
+    Switch("maxiter", _B + "MAXITER", "maxiter", int, MAXITER,
+           "Richardson iterations per solve"),
+    Switch("eig-exact", _B + "EIG_EXACT", "eig_exact", "bool", False,
+           "converged Arnoldi estimates (eig_exact)"),
+    Switch("eig-proxy", _B + "EIG_PROXY", "eig_proxy_cells", int, 0,
+           "proxy cells of the estimates, 0 none (eig_proxy_cells)"))
+
 
 def run(cells: int = 8, ntao: int = 16, n_slabs: int = 6, device="cuda",
-        profile: bool = False):
+        profile: bool = False, *, bf16: bool = True,
+        smoothing_range: float = 1.0, inner: int = 2, maxiter: int = MAXITER,
+        eig_exact: bool = False, eig_proxy_cells: int = 0):
     """Set up, probe and march n_slabs slabs.  Returns (info dict with
     the metric value under "dofs_per_s", last slab's FP64 u).
     profile=True solves the last slab once more, untimed, under
-    torch.profiler and adds its summary as info["profile"]."""
+    torch.profiler and adds its summary as info["profile"].  The keyword
+    arguments are bench.py's wave switches (SWITCHES), with its
+    defaults."""
     device = torch.device(device)
     f32, f64 = torch.float32, torch.float64
     refinement = int(np.log2(cells // 2))
@@ -88,10 +115,16 @@ def run(cells: int = 8, ntao: int = 16, n_slabs: int = 6, device="cuda",
     r_u = SystemMatrix(K, M, rhs_uK, rhs_uM)
     r_v = SystemMatrix(K, M, np.zeros_like(rhs_vM), rhs_vM)
     gmg = build_stmg(mesh, FE_DEGREE, SPACE_DEGREE, dg, ntao, TAU,
-                     bench_params(ProblemType.wave, eig_exact=False),
+                     bench_params(ProblemType.wave, level_bf16=bf16,
+                                  vanka_bf16=bf16,
+                                  smoothing_range=smoothing_range,
+                                  smoother_inner_iterations=inner,
+                                  eig_exact=eig_exact,
+                                  eig_proxy_cells=eig_proxy_cells),
                      dtype=f32, device=device, problem=ProblemType.wave)
     _sync(device)
-    print(f"# setup/hierarchy {time.time() - t_setup:.1f}s", flush=True)
+    hierarchy_s = time.time() - t_setup
+    print(f"# setup/hierarchy {hierarchy_s:.1f}s", flush=True)
     resid = SlabResidual64(KronAssembled(*ops[f64], f64), K.mask_np, A_lhs,
                            B_lhs, rhs_uM, Gamma_K=rhs_uK, Gamma_v=rhs_vM)
     recovery = WaveVelocityRecovery(A1, B1, G1, ntao, device)
@@ -122,7 +155,7 @@ def run(cells: int = 8, ntao: int = 16, n_slabs: int = 6, device="cuda",
 
     def solve(b, x0, reltol):
         return richardson_solve(matrix.vmult, b, x0, gmg.vmult,
-                                maxiter=MAXITER, reltol=reltol)
+                                maxiter=maxiter, reltol=reltol)
 
     def solve_slab(i, pu64, pv64, rtol1, ir_rtol, n_corr):
         """First solve + n_corr IR passes + v-recovery of slab i ->
@@ -197,7 +230,9 @@ def run(cells: int = 8, ntao: int = 16, n_slabs: int = 6, device="cuda",
         avg_iters=float(np.mean(iters)), iters=iters,
         true_rel_residual=max(rels), true_rels=rels,
         converged=bool(all(r <= 1e-8 for r in rels)),
-        setup_s=setup_s, probe_s=probe_s, solve_s=solve_s, slab_s=times,
+        setup_s=setup_s, hierarchy_s=hierarchy_s,
+        estimates=dict(gmg.estimates), probe_s=probe_s, solve_s=solve_s,
+        slab_s=times,
         slab_host_cpu_s=cpu,
         probe_floor=floor, rtol1=rtol1, ir_rtol=ir_rtol, n_corr=n_corr,
         v_oracle_rel=v_rel, dofs_per_s=dofs_per_s)
@@ -228,11 +263,12 @@ def metric_line(info: dict) -> dict:
             "device": info["device"]}
 
 
-def main(argv=None):
+def main(argv=None, environ=None):
+    """The command line; each switch's default reads its
+    STFEM_BENCH_WAVE_* variable from environ (os.environ)."""
+    environ = os.environ if environ is None else environ
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cells", type=int, default=8)
-    ap.add_argument("--ntao", type=int, default=16)
-    ap.add_argument("--slabs", type=int, default=6)
+    add_switches(ap, SWITCHES, environ)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra, untimed slab solve")
@@ -240,8 +276,8 @@ def main(argv=None):
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("bench_wave: no CUDA device (the bench measures "
                          "the GPU; pass --device cpu for a functional run)")
-    info, _ = run(args.cells, args.ntao, args.slabs, args.device,
-                  profile=args.profile)
+    info, _ = run(device=args.device, profile=args.profile,
+                  **switch_kwargs(args, SWITCHES))
     print(json.dumps(info), flush=True)
     if not info["converged"]:
         raise SystemExit("bench_wave: NOT converged -- metric withheld")

@@ -31,15 +31,17 @@ def _norm(a) -> float:
 
 def richardson_solve(A: Callable, b: torch.Tensor, x0: torch.Tensor,
                      precondition: Callable, maxiter: int = 100,
-                     reltol: float = 1e-8) -> SolveResult:
-    """x += P(b - A x) (bench.py's omega = 1) with a TRUE-residual stop
-    test per step."""
+                     reltol: float = 1e-8, omega: float = 1.0,
+                     abstol: float = 1e-30) -> SolveResult:
+    """x += omega P(b - A x) with a TRUE-residual stop test per step,
+    ||r|| <= max(abstol, reltol ||r0||) (stfem_tpu krylov.py:258-290)."""
     r = b - A(x0)
     beta = _norm(r)
-    tol = reltol * beta
+    tol = max(abstol, reltol * beta)
     x, res, j = x0, beta, 0
     while j < maxiter and res > tol:
-        x = x + precondition(r)
+        step = precondition(r)
+        x = x + (step if omega == 1.0 else omega * step)
         r = b - A(x)
         res = _norm(r)
         j += 1
@@ -139,12 +141,24 @@ def gmres_fixed_left(A: Callable, b: torch.Tensor, precondition: Callable,
 def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
            precondition: Callable, maxiter: int = 100,
            reltol: float = 1e-12, abstol: float = 1e-12,
-           reorthogonalize: bool = True) -> SolveResult:
-    """Flexible GMRES without restart (basis size == maxiter): classical
-    Gram-Schmidt with a second pass (stfem_tpu's default; the benches'
-    IR mode passes reorthogonalize=False, one pass, since their untimed
-    TRUE residual check gates the result), Givens rotations, stop on the
-    Givens residual estimate."""
+           reorthogonalize: bool | str = True, basis_dtype=None,
+           flexible: bool = True) -> SolveResult:
+    """GMRES without restart (basis size == maxiter), Givens rotations,
+    stop on the Givens residual estimate, with stfem_tpu's options
+    (krylov.py:40-81):
+
+    reorthogonalize: True runs classical Gram-Schmidt with a second pass
+        (stfem_tpu's default), False one pass (the benches' IR mode: their
+        untimed TRUE residual check gates the result), "selective" the
+        second pass only where the first cancelled most of w (the DGKS
+        test ||w_after|| < ||w_before|| / sqrt(2)).
+    basis_dtype: store the orthonormal basis V in this dtype (e.g. bf16;
+        the Gram-Schmidt products run in the working dtype); the
+        preconditioned directions Z and x keep the working dtype.
+    flexible: False is right-preconditioned GMRES: no Z is kept and x =
+        x0 + P(V y), one more preconditioner apply at the end; right only
+        for a fixed linear P (the STMG V-cycle), where its iterates are
+        FGMRES's."""
     shape = b.shape
     r0 = b - A(x0)
     beta = _norm(r0)
@@ -156,15 +170,21 @@ def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     res, j = beta, 0
     v = (r0 / beta).reshape(-1) if beta > 0 else None
     while v is not None and j < maxiter and res > tol:
-        V.append(v)
+        V.append(v if basis_dtype is None else v.to(basis_dtype))
         z = precondition(v.reshape(shape))
-        Z.append(z.reshape(-1))
+        if flexible:
+            Z.append(z.reshape(-1))
         w = A(z).reshape(-1)
-        Vm = torch.stack(V)
+        Vm = torch.stack(V).to(w.dtype)
         with full_precision():      # never TF32 in the orthogonalisation
+            w_pre = _norm(w) if reorthogonalize == "selective" else 0.0
             h = Vm @ w
             w = w - Vm.T @ h
-            if reorthogonalize:
+            if reorthogonalize == "selective":
+                again = _norm(w) < 0.7071 * w_pre
+            else:
+                again = bool(reorthogonalize)
+            if again:
                 h2 = Vm @ w
                 w = w - Vm.T @ h2
                 h = h + h2
@@ -192,8 +212,11 @@ def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         y = torch.linalg.solve_triangular(
             R, torch.tensor(g[:j], dtype=torch.float64)[:, None],
             upper=True)[:, 0]
-        Zm = torch.stack(Z)
-        x = x0 + (Zm.T @ y.to(Zm.dtype).to(Zm.device)).reshape(shape)
+        basis = torch.stack(Z) if flexible else torch.stack(V).to(b.dtype)
+        with full_precision():
+            step = (basis.T @ y.to(basis.dtype).to(basis.device)).reshape(
+                shape)
+        x = x0 + (step if flexible else precondition(step))
     return SolveResult(x=x, iterations=j, residual=res, converged=res <= tol)
 
 

@@ -245,9 +245,12 @@ class RelaxationSmoother:
         self.omega = omega
         self.n_iterations = n_iterations
 
-    def vmult(self, b: torch.Tensor):
+    def vmult(self, b: torch.Tensor, n_iterations: int | None = None):
+        """n_iterations: this application's sweeps (None: the
+        smoother's)."""
+        n = self.n_iterations if n_iterations is None else n_iterations
         x = self.omega * self.precond.vmult(b)
-        for _ in range(self.n_iterations - 1):
+        for _ in range(n - 1):
             x = x + self.omega * self.precond.vmult(b - self.matrix.vmult(x))
         return x
 

@@ -147,7 +147,7 @@ def load_geometry(op, jxw=None, jinv=None, jinv_axis=None) -> None:
     stfem_tpu's Geometry layouts -- jxw, jinv [*cells, *q, dim, dim] of a
     mapped mesh, jinv_axis (one (cells[d],) array per axis) of a
     non-uniform one -- and every table the operator derives from them, so
-    that an apply starts from stfem_tpu's map Jacobians."""
+    that an apply starts with the map Jacobians of stfem_tpu."""
     new = {}
     for name, a in (("jxw", jxw), ("jinv", jinv)):
         if a is not None:

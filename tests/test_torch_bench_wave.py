@@ -4,6 +4,7 @@ residual, IR pass(es), v-recovery, untimed TRUE check.  It imports no
 stfem_tpu: the route is held to the TRUE residual, the dense f64 v oracle
 and the exact solution."""
 import numpy as np
+import pytest
 import torch
 
 from stfem_tpu_torch import bench_wave
@@ -13,6 +14,14 @@ from stfem_tpu_torch.problems import heat
 torch.set_num_threads(1)
 
 CELLS, NTAO = 4, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
 
 
 def test_bench_route_true_1e8_and_v_oracle():

@@ -21,6 +21,14 @@ LOG = (":: Number of active cells: 16\n"
        "  k \\ r  2  3\n  1  8.0  8.75\n\n")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def test_campaign_generation(tmp_path):
     """tests/test_aux.py:45-50 on the port, and every file as
     stfem_tpu's."""

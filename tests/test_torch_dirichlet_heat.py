@@ -42,6 +42,14 @@ torch.set_num_threads(1)
 F64 = torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def _close(got, ref, rel):
     got = np.asarray(got.detach() if torch.is_tensor(got) else got)
     ref = np.asarray(ref)

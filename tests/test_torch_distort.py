@@ -57,6 +57,14 @@ torch.set_num_threads(1)
 F64 = torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def _close(got, ref, rel):
     got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
     ref = np.asarray(ref, np.float64)

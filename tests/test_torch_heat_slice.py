@@ -52,6 +52,14 @@ torch.set_num_threads(1)
 CELLS, NTAO, TAU, PROXY = 4, 4, 1.0 / 16.0, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def _jax_params(bf16):
     return JParams(smoothing_steps=1, variable=False,
                    smoother=JSmooth.Relaxation, smoothing_range=1.0,
@@ -61,7 +69,8 @@ def _jax_params(bf16):
 
 
 def _torch_params(bf16):
-    return bench_params(level_bf16=bf16, eig_proxy_cells=PROXY)
+    return bench_params(level_bf16=bf16, vanka_bf16=bf16,
+                        eig_proxy_cells=PROXY)
 
 
 def build_slice(bf16):

@@ -12,6 +12,14 @@ from test_torch_heat_slice import (CELLS, NTAO, PROXY, build_slice,
                                    check_richardson_iterations)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 @pytest.fixture(scope="module")
 def slice_setup():
     return build_slice(True)

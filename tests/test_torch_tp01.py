@@ -46,6 +46,14 @@ REDUCED = {"subdivisions": "2,2,2", "refinement": 1, "nTimestepsAtOnce": 2,
            "endTime": 0.25}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def _config(tmp_path, name):
     with open(tp01.PRACTICAL_3D) as f:
         cfg = json.load(f)

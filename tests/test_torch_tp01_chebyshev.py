@@ -27,6 +27,14 @@ CHEB_KEYS = {"smoother": "chebyshev", "smoothingSteps": 2,
 GOLDEN_L2 = {2: 1.78760e-02, 3: 3.24200e-03}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 @pytest.mark.parametrize("ref", [2, 3])
 def test_run_config_chebyshev(tmp_path, monkeypatch, ref):
     monkeypatch.setenv("STFEM_EIG_CACHE", "0")

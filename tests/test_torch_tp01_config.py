@@ -26,6 +26,14 @@ TINY = {"problemType": "heat", "timeType": "DG", "feDegree": 1,
         "relativeTolerance": 1e-12, "spaceTimeMg": True}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def _tables(text):
     """The lines from the first convergence table on."""
     lines = text.splitlines()

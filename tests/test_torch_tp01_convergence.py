@@ -33,6 +33,14 @@ GOLDEN_DG1_REF2 = (5.53197e-02, 1.78760e-02, 1.35366e-01)
 GOLDEN_CGP2_REF2 = (4.36348e-03, 1.57444e-03, 1.16973e-02)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def both(kind: str, r: int, problem: str, n_at_once: int, refinement: int,
          dim: int = 2, skip_identity: bool = False,
          carry_omegas: bool = False):

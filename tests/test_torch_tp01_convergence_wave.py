@@ -26,6 +26,14 @@ from test_torch_tp01_convergence import both, check
 GOLDEN_WAVE_DG1_REF2 = (7.45999e-02, 2.07852e-02, None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def test_wave_dg1_cycle():
     jres, jslabs, tres = both("DG", 1, "wave", 4, 2, skip_identity=True)
     check(jres, jslabs, tres, 2, GOLDEN_WAVE_DG1_REF2)

@@ -32,6 +32,14 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 @pytest.fixture
 def native_writer(tmp_path, monkeypatch):
     """stfem_tpu's native library, built into tmp_path and loaded as

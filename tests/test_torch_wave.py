@@ -46,6 +46,14 @@ torch.set_num_threads(1)
 CELLS, NTAO, TAU = 4, 4, 1.0 / 16.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 def _eq(a, b):
     if isinstance(a, (tuple, list)):
         assert len(a) == len(b)
@@ -170,6 +178,7 @@ def _jax_params(bf16):
 
 def _torch_params(bf16):
     return bench_params(ttypes.ProblemType.wave, level_bf16=bf16,
+                        vanka_bf16=bf16,
                         eig_exact=False)
 
 

@@ -11,6 +11,14 @@ from test_torch_wave import (build_wave_slice, check_ladder,
                              check_richardson_iterations)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_estimate_cache():
+    """The port's hierarchies estimate afresh: no estimate disk cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STFEM_EIG_CACHE", "0")
+        yield
+
+
 @pytest.fixture(scope="module")
 def slice_setup():
     return build_wave_slice(True)
