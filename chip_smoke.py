@@ -52,13 +52,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      K1, K2 and K4 (both chains) must each launch in this run; the
      profiled slab's launches and device ms of K4, K2, K1 and K3;
   8. wave main path: bench_wave at its defaults (8^3 cells, 16 steps per
-     slab) for the probe plus 2 timed slabs and one profiled, untimed
-     slab; every slab must reach TRUE <= 1e-8, the probe's recovered v
+     slab) for the probe plus 1 timed slab (2 until phase 19) and one
+     profiled, untimed slab; every slab must reach TRUE <= 1e-8, the
+     probe's recovered v
      must agree with the dense FP64 oracle to < 1e-9, and K2 and K4 (both
      chains) must each launch in this run;
   9. Stokes main path: bench_stokes at its defaults (8^3 cells, 8 steps
-     per slab) for the two probe slabs plus 2 timed slabs and one
-     profiled, untimed slab; every slab must reach TRUE <= 1e-8 and K2 and
+     per slab) for the two probe slabs plus 1 timed slab (2 until phase
+     19) and one profiled, untimed slab; every slab must reach TRUE <=
+     1e-8 and K2 and
      K3 must each launch in this run.  K3 (the rhs coupling's M x) must
      launch on the heat and wave paths too.
  10. coefficient main path: drivers/tp01.run_single on
@@ -96,11 +98,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      walls, iterations, space-time DoF/s and setup, every slab converged
      and an L2-L2(u) rate >= 1.8 between the two finest refinements; (c)
      configs/tp03stokes_lid_2d.json (the Nitsche lid-driven cavity at
-     256^2 cells, 1,445,892 unknowns per slab) for 3 slabs (4 until the
-     smoke took phase 16): per slab the
+     256^2 cells, 1,445,892 unknowns per slab) for 2 slabs (4 until the
+     smoke took phase 16, 3 until phase 19): per slab the
      iterations, wall, DoF/s, and a true FP64 residual (StokesSystemMatrix
      .vmult) within 2x of FGMRES's stop test; the functionals file's rows
-     have 6 finite columns; the third slab again and one V-cycle alone
+     have 6 finite columns; the last slab again and one V-cycle alone
      under the profiler (device busy share, launches per V-cycle); (d)
      DG(1) and CGP(1) refinement 2 and the weak lid at refinement 3 (2
      slabs; u, p and the functionals rows) on the card against the CPU
@@ -110,10 +112,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      on configs/tp03stokes_dfg_2d.json: 2D Q2 x DGP1, dG(1), weak inflow
      and walls, do-nothing outflow, strong obstacle): (a) the
      dfgBenchmarkSquare grid at refinement 5 (288 x 96 cells, 611,332
-     unknowns a slab) for 4 slabs: per slab the iterations, wall, DoF/s,
-     a true FP64 residual within 2x of FGMRES's stop test, c_D, c_L and
-     the divergence norm; the setup, the hierarchy setup and the peak
-     device memory; the fourth slab again and one V-cycle alone under the
+     unknowns a slab) for 3 slabs (4 until phase 19): per slab the
+     iterations, wall, DoF/s, a true FP64 residual within 2x of FGMRES's
+     stop test, c_D, c_L and the divergence norm; the setup, the
+     hierarchy setup and the peak device memory; the last slab again and
+     one V-cycle alone under the
      profiler; (b) the cylinder (gridDescriptor dfgBenchmark) for 1 slab
      (2 until phase 16), the same lines without the profile; (c) both
      grids at
@@ -182,7 +185,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      refinement 1 with the Polynomial predictor against the Constant one
      (l2 within 1e-3, iterations at most + 2); (b) the 256^2 Navier path
      (2D Q2 x DGP1, DG(1), 1,445,892 unknowns a slab, tau 2^-9, 3 Picard
-     solves a slab, 2 slabs): per solve the iterations and wall, per slab
+     solves a slab, 1 slab (2 until phase 19)): per solve the iterations
+     and wall, per slab
      a true FP64 Oseen residual (StokesSystemMatrix.vmult(mode="form") at
      the last u_lin) within 2x of FGMRES's stop test; the setup and the
      errors; one "form" apply and one "none" apply (element route), the
@@ -229,6 +233,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
      dot.  Phases 1-17 run with STFEM_EIG_CACHE=0 (no estimate cache);
      18(a) and (b) share a fresh cache file (the cases whose levels are
      alike estimate once), 18(c) has its own.
+ 19. the sharded whole solve (sharded_phase; parallel/minibench.py
+     through parallel/dryrun.py): 8 gloo processes share the card, each
+     computing its slab there, the halo planes and scalar reductions
+     staged through the host -- a correctness result, not a scaling
+     figure.  (a) stfem_tpu's dry-run size, cells 8, ntao 8 (24 blocks x
+     33^3, 862,488 unknowns) on the (2, 2, 2) mesh: converged (TRUE <=
+     1e-8), iteration parity with rank 0's single-device run, the
+     gathered solution within minibench.SOLUTION_RTOL of rank 0's
+     single-device one, halo exchanges > 0 and all-reduces <= max(100,
+     exchanges // 4) (the budget of tests/test_multichip_bench.py, read
+     as call counts); the slab walls and K1/K2/K4 launches summed over
+     the ranks (launches_by_path "sharded", from (a) and (b)); (b) the
+     headline size, cells 16, ntao 32 (96 blocks x 65^3, 26.4 M
+     unknowns): TRUE <= 1e-8, parity and the solution, both walls.
+     After each of (a) and (b), in this process, K2 on the residual's
+     pair input of a rank's sub-mesh (rel 1e-14) and, on every sharded
+     level, the sliced Vanka's K4 down, K1 and K4 up (rel 1e-5) against
+     their plain versions at the shapes and with the matrices the path
+     gives them (sharded_kernel_checks).  (c) a one-rank NCCL group running
+     (a)'s solve in this process: the same iterations and the solution
+     bitwise the unsharded one's, no collective.  Its estimates go
+     through a fresh cache file that (a) fills and (c) reads.
 Then it prints the smoke's total wall, the nvidia-smi line, a JSON line
 describing the kernels (launches over all main paths and by path), and,
 last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -315,6 +341,12 @@ GOLDEN_2D = [
     ("wave DG(1) ref 2", dict(refinement=2, fe_degree=1, kind="DG",
                               problem="wave", n_at_once=4),
      True, (7.45999e-02, 2.07852e-02, None), 13.0)]
+
+# the slabs of the earlier phases' marches, each cut by one when phase 19
+# came (the smoke passed 950 s): the wave and Stokes benches' timed slabs
+# (phases 8-9 and 15(d)), the 256^2 lid (12(c)), the DFG square (13(a)),
+# the 256^2 Navier cycle (16(b)); FEQ_CUTS and DIRICHLET_CUTS below
+MAIN_CUTS = {"wave": 1, "stokes": 1, "lid": 2, "dfg square": 3, "navier": 1}
 
 K_NAMES = (("K1", ("time_solve",)), ("K2", ("kron_pair",)),
            ("K3", ("banded_apply",)), ("K4", ("chain_down", "chain_up")))
@@ -762,16 +794,17 @@ def tp03stokes_phase(wrappers, dev, lid=None) -> dict:
     del results
     torch.cuda.empty_cache()
 
-    # (c) the lid-driven cavity at 256^2 cells: 3 slabs, then one more
-    #     slab (the third again) and one V-cycle under the profiler
+    # (c) the lid-driven cavity at 256^2 cells: 2 slabs (3 until phase
+    #     19), then the last again and one V-cycle under the profiler
     with tempfile.TemporaryDirectory() as tmpd:
         p = config(tp03stokes.LID_2D,
                    functional_file=os.path.join(tmpd, "functionals.txt"))
         timer, slabs = TimerOutput(), []
         t0 = time.time()
         res = tp03stokes.run_practical(p, extra, p.fe_degree, p.refinement,
-                                       n_slabs_max=3, device="cuda",
-                                       timer=timer, on_slab=slabs.append)
+                                       n_slabs_max=MAIN_CUTS["lid"],
+                                       device="cuda", timer=timer,
+                                       on_slab=slabs.append)
         wall = time.time() - t0
         with open(p.functional_file) as f:
             rows = [line.split() for line in f if line.strip()]
@@ -780,7 +813,7 @@ def tp03stokes_phase(wrappers, dev, lid=None) -> dict:
           f"block, {st} per slab; setup {timer.totals['setup']:.2f} s "
           f"(hierarchy {timer.totals['setup:gmg']:.2f} s), phase wall "
           f"{wall:.1f} s, {len(rows)} functionals rows", flush=True)
-    ok = len(slabs) == 3
+    ok = len(slabs) == MAIN_CUTS["lid"]
     for i, (s, w) in enumerate(zip(slabs, timer.times["step"])):
         m, stats = s["matrix"], s["stats"]
         rn = float((s["rhs"] - m.vmult(s["x"])).norm())
@@ -798,7 +831,8 @@ def tp03stokes_phase(wrappers, dev, lid=None) -> dict:
     vprof = bench_heat.profile_slab(lambda: last["preconditioner"](v), dev,
                                     top=8)
     its = last["stats"].iterations
-    print(f"# tp03stokes lid: profile of slab 2 again (untimed): device busy "
+    print(f"# tp03stokes lid: profile of slab {len(slabs) - 1} again "
+          f"(untimed): device busy "
           f"{prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s wall "
           f"(share {prof['device_busy_share']:.4f}), "
           f"{prof['n_kernel_launches']} launches over {its} FGMRES "
@@ -876,8 +910,8 @@ def dfg_phase(wrappers, dev, strong=None) -> dict:
     tp03stokes.py::run_practical, drivers/stokes.py::run_dfg_square, the
     masked, non-uniform and mapped geometry, free faces, drag/lift) -- (a)
     configs/tp03stokes_dfg_2d.json (the dfgBenchmarkSquare grid at
-    refinement 5, 288 x 96 cells, 611,332 unknowns a slab) for 4 slabs,
-    slab 3 again and one V-cycle under the profiler; (b) the cylinder
+    refinement 5, 288 x 96 cells, 611,332 unknowns a slab) for 3 slabs,
+    the last again and one V-cycle under the profiler; (b) the cylinder
     (gridDescriptor dfgBenchmark) for 1 slab; (c) refinement 2, 2 slabs,
     square and cylinder, on the card against the CPU.  Returns the
     launches of every wrapper over the phase (the path runs none of
@@ -963,7 +997,7 @@ def dfg_phase(wrappers, dev, strong=None) -> dict:
         torch.cuda.empty_cache()
 
     # (a) the square at refinement 5, 4 slabs; (b) the cylinder, 1 slab
-    run_main("square", "dfgBenchmarkSquare", 4, True)
+    run_main("square", "dfgBenchmarkSquare", MAIN_CUTS["dfg square"], True)
     run_main("cylinder", "dfgBenchmark", 1, False)
 
     # (c) refinement 2, 2 slabs: the card against the CPU
@@ -1530,7 +1564,8 @@ def stokes_repeat_check(dev, gen, first_iters) -> None:
         del gmg
     fsame = (bool(torch.equal(fouts[0], fouts[1]))
              and fparams[0] == fparams[1])
-    info, _ = bench_stokes.run(8, 8, n_slabs=2, device="cuda")
+    info, _ = bench_stokes.run(8, 8, n_slabs=MAIN_CUTS["stokes"],
+                               device="cuda")
     print(f"# stokes repeat: two builds of the bench hierarchy, one V-cycle "
           f"each: bitwise equal {same} (omegas {params[0]}); two builds of "
           f"the FE_Q 32^2 hierarchy: bitwise equal {fsame} (omegas "
@@ -1620,13 +1655,14 @@ def navier_obstacle_phase(wrappers, dev, strong) -> dict:
         raise AssertionError("navier: rate or predictor check failed")
 
     # (b) the full-width Navier path: 256^2 cells, DG(1), tau 2^-9, three
-    #     Picard solves a slab, 2 slabs
+    #     Picard solves a slab, MAIN_CUTS["navier"] slabs
     by_path = {}
     for w in wrappers.values():
         w.launches = 0
     timer, solves = TimerOutput(), []
     t0 = time.time()
-    res = navier(refinement=8, n_picard=3, n_slabs_max=2, gmres_maxiter=200,
+    res = navier(refinement=8, n_picard=3, n_slabs_max=MAIN_CUTS["navier"],
+                 gmres_maxiter=200,
                  timer=timer, on_slab=solves.append)
     wall = time.time() - t0
     by_path["navier"] = {name: w.launches for name, w in wrappers.items()}
@@ -1636,9 +1672,9 @@ def navier_obstacle_phase(wrappers, dev, strong) -> dict:
           f"slab; setup {timer.totals['setup']:.2f} s (hierarchy "
           f"{timer.totals['setup:gmg']:.2f} s), run wall {wall:.1f} s, slab "
           f"walls {' '.join(f'{w:.4f}' for w in timer.times['step'])} s; "
-          f"errors after 2 slabs (not gated) "
+          f"errors after {MAIN_CUTS['navier']} slab(s) (not gated) "
           f"{' '.join(f'{getattr(res, n):.6e}' for n in norms)}", flush=True)
-    ok = len(solves) == 6
+    ok = len(solves) == 3 * MAIN_CUTS["navier"]
     for s, w in zip(solves, timer.times["picard"]):
         line = (f"# navier 256^2 slab {int(round(s['time'] / s['time_step']))}"
                 f" Picard {s['picard']}: FGMRES iterations "
@@ -1791,10 +1827,10 @@ def navier_obstacle_phase(wrappers, dev, strong) -> dict:
 
 # phase 17's cuts of the march (refinement: slabs); every other
 # refinement runs whole
-# (16^2: 2 of 8 slabs, 32^2: 1 of 16, 64^2: 1 of 32; 16^3: 2 of 16,
-# 32^3: 1 of 32)
-FEQ_CUTS = {4: 2, 5: 1, 6: 1}
-DIRICHLET_CUTS = {4: 2, 5: 1}
+# (16^2: 1 of 8 slabs, 32^2: 1 of 16, 64^2: 1 of 32; 16^3: 1 of 16,
+# 32^3: 1 of 32; 16^2 and 16^3 ran 2 until phase 19 came)
+FEQ_CUTS = {4: 1, 5: 1, 6: 1}
+DIRICHLET_CUTS = {4: 1, 5: 1}
 
 # stfem_tpu's FE_Q Stokes cycle on the CPU with x64 (its tests' setting):
 # DG(1), one step at once, Nitsche faces on every wall,
@@ -2280,6 +2316,182 @@ def switches_phase(wrappers, dev) -> dict:
     return counts
 
 
+# phase 19: the sharded solve at stfem_tpu's dry-run size and the headline
+# size, on 8 gloo processes sharing the card
+SHARDED_CASES = (("(a)", dict(cells=8, ntao=8)),
+                 ("(b)", dict(cells=16, ntao=32)))
+
+
+def sharded_kernel_checks(dev, gen, label: str, kw: dict) -> None:
+    """Phase 19's kernels against their plain versions at the shapes, and
+    with the matrices, that the sharded solve of case kw gives them on a
+    rank: rank (0, 0, 0) of the (2, 2, 2) mesh (every rank's slab has its
+    shape).  K2 on the FP64 residual's pair input (the local sub-mesh's
+    factors under the global mask; rel 1e-14, as phase 4), and on each
+    sharded level of the V-cycle the sliced Vanka's K4 down chain, K1
+    (where the level solves several steps at once) and K4 up chain, in
+    float32 (rel 1e-5, as phases 3 and 5).  The global hierarchy is
+    rebuilt here from the estimates the ranks left in the cache."""
+    import torch
+    from stfem_tpu_torch.ops.grid_chain import (chain_down,
+                                                chain_down_reference,
+                                                chain_up, chain_up_reference)
+    from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
+    from stfem_tpu_torch.ops.kronfac import KronAssembled
+    from stfem_tpu_torch.ops.slab_residual import SlabResidual64
+    from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
+    from stfem_tpu_torch.ops.time_solve import (time_solve,
+                                                time_solve_reference)
+    from stfem_tpu_torch.parallel.minibench import hierarchy, minibench_mesh
+    from stfem_tpu_torch.parallel.sharding import (RankLayout,
+                                                   level_sharding_policy)
+    from stfem_tpu_torch.stmg.eig_cache import EstimateCache, cache_path
+
+    f64 = torch.float64
+    mesh = minibench_mesh(kw["cells"])
+    (Alpha, Beta, Gamma), gmg = hierarchy(
+        mesh, kw["ntao"], device=dev,
+        estimate_cache=EstimateCache(cache_path()))
+    layout = RankLayout((2, 2, 2), (0, 0, 0), (None,) * 3, np.arange(8))
+    sub, mask = layout.submesh(mesh), layout.mask(mesh, 4)
+    kron = KronAssembled(*(LaplaceMassOperator(
+        sub, 4, 5, ms, ls, dtype=f64, device=dev, mask=mask)
+        for ms, ls in ((0.0, 1.0), (1.0, 0.0))), f64)
+    resid = SlabResidual64(kron, mask, Alpha, Beta, Gamma)
+    x = torch.randn((resid.n_coupling + resid.nt,
+                     resid.n_blocks // resid.nt) + sub.dof_shape(4),
+                    generator=gen, device=dev, dtype=f64)
+    got, ref = (f(x, kron.Md, kron.Ad, kron.k)
+                for f in (kron_pair, kron_pair_reference))
+    rel = max(float((g - r).abs().max() / r.abs().max())
+              for g, r in zip(got, ref))
+    print(f"# sharded {label} K2 kron_pair f64 {tuple(x.shape)} k=4 (the "
+          f"residual's pair on a rank's sub-mesh): rel to max {rel:.3e} "
+          f"(tol 1e-14)", flush=True)
+    if not rel <= 1e-14:
+        raise AssertionError(f"sharded {label}: K2 disagrees with its plain "
+                             "version")
+    del x, got, ref, kron, resid
+    policy = level_sharding_policy(8, gmg, min_dofs_per_device=2048)
+    for lvl_idx, p in enumerate(policy):
+        lvl = gmg.levels[lvl_idx]
+        vanka = getattr(lvl.smoother, "precond", None)
+        if p != "sharded" or vanka is None:
+            continue
+        K = lvl.matrix.K
+        van = vanka.shard(layout.cell_ranges(K.cells))
+        nb = lvl.n_blocks
+        src = torch.randn((nb,) + layout.submesh(K.mesh).dof_shape(K.degree),
+                          generator=gen, device=dev).to(van.dtype)
+        w = chain_down(src, van.Wdn, cells=van.cells, k=van.k)
+        rels = {"K4 down": (w, chain_down_reference(src, van.Wdn))}
+        up_in = w
+        if van.n_steps > 1:
+            S, wf = van.n_steps, w.reshape(nb, -1)
+            t = time_solve(wf, van.GinvT, van.cvecT, S, nb // S, wf.dtype)
+            rels["K1"] = (t, time_solve_reference(wf, van.GinvT, van.cvecT,
+                                                  S, nb // S, wf.dtype))
+            up_in = t.reshape(w.shape).to(van.dtype)
+        y = chain_up(up_in, van.Wup, cells=van.cells, k=van.k)
+        rels["K4 up"] = (y, chain_up_reference(up_in, van.Wup))
+        rels = {n: float((g.float() - r.float()).abs().max()
+                         / r.float().abs().max())
+                for n, (g, r) in rels.items()}
+        print(f"# sharded {label} level {lvl_idx} Vanka {nb} x "
+              f"{tuple(src.shape[1:])} Q{van.k} cells {van.cells} "
+              f"{str(van.dtype)[6:]} (steps {van.n_steps}, K1 N = "
+              f"{w[0].numel()}): rel to max "
+              f"{ {n: f'{r:.3e}' for n, r in rels.items()} } (tol 1e-5)",
+              flush=True)
+        if not all(r <= 1e-5 for r in rels.values()):
+            raise AssertionError(f"sharded {label} level {lvl_idx}: a "
+                                 "kernel disagrees with its plain version")
+    del gmg
+    torch.cuda.empty_cache()
+
+
+def sharded_phase(smi: str, dev, gen) -> dict:
+    """Phase 19 (module docstring): returns the kernel launches of the
+    sharded solves of (a) and (b), summed over the ranks."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    from stfem_tpu_torch.parallel.dryrun import dryrun_multichip
+    from stfem_tpu_torch.parallel.minibench import (SOLUTION_RTOL,
+                                                    run_sharded_minibench)
+
+    t_phase = time.time()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmpd:
+        os.environ["STFEM_EIG_CACHE"] = os.path.join(tmpd, "eig.json")
+        try:
+            for label, kw in SHARDED_CASES:
+                t0 = time.time()
+                outs = dryrun_multichip(8, "cuda", verbose=False, **kw)
+                wall = time.time() - t0
+                o = outs[0]
+                launches = {n: sum(x["launches"][n] for x in outs)
+                            for n in o["launches"]}
+                for n, c in launches.items():
+                    counts[n] = counts.get(n, 0) + c
+                col = o["collectives"]
+                print(f"# sharded {label} {kw['cells']}^3 ntao={kw['ntao']}"
+                      f" ({o['n_blocks']} blocks x {o['space_dofs']} dofs) "
+                      f"on 8 gloo processes sharing one card ({smi}; not a "
+                      f"scaling figure): mesh {o['mesh']}, local grid "
+                      f"{o['local_dof_shape']}, policy {o['policy']}; "
+                      f"V-cycle steps single {o['single_iters']} sharded "
+                      f"{o['sharded_iters']}; TRUE rel single "
+                      f"{o['single_true_rel']:.3e} sharded "
+                      f"{o['sharded_true_rel']:.3e}; gathered solution "
+                      f"within {o['solution_rel_diff']:.3e} of the single "
+                      f"one (tol {SOLUTION_RTOL:g}); slab wall single "
+                      f"{o['single_s']:.2f} s, sharded {o['sharded_s']:.2f} "
+                      f"s; collectives per rank {col}; residual "
+                      f"{o['residual_kernel']}; launches over the ranks "
+                      f"{launches}; phase wall {wall:.1f} s", flush=True)
+                if not all(x["converged"] and x["iter_parity"]
+                           and x["solution_match"] for x in outs):
+                    raise AssertionError(f"sharded {label}: not converged, "
+                                         "no iteration parity or another "
+                                         "solution")
+                if label == "(a)" and not (
+                        col["halo_exchanges"] > 0 and col["all_reduces"]
+                        <= max(100, col["halo_exchanges"] // 4)):
+                    raise AssertionError(f"sharded (a): collectives {col} "
+                                         "outside the budget")
+                sharded_kernel_checks(dev, gen, label, kw)
+                phase_wall(t_phase, f"19{label}")
+            with tempfile.TemporaryDirectory() as initd:
+                dist.init_process_group("nccl",
+                                        init_method=f"file://{initd}/init",
+                                        rank=0, world_size=1,
+                                        timeout=timedelta(seconds=300))
+                try:
+                    out = run_sharded_minibench(
+                        **SHARDED_CASES[0][1], device="cuda",
+                        keep_solutions=True, verbose=False)
+                finally:
+                    dist.destroy_process_group()
+        finally:
+            os.environ["STFEM_EIG_CACHE"] = "0"
+    same = bool(torch.equal(out["single_x"], out["sharded_x"]))
+    print(f"# sharded (c) one-rank NCCL group, 8^3 ntao=8: V-cycle steps "
+          f"single {out['single_iters']} sharded {out['sharded_iters']}, "
+          f"solution bitwise the unsharded one's: {same}, collectives "
+          f"{out['collectives']}", flush=True)
+    if not (same and out["iter_parity"]
+            and not any(out["collectives"].values())):
+        raise AssertionError("one-rank NCCL: the sharded solve differs from "
+                             "the unsharded one or communicated")
+    missing = [n for n in ("time_solve", "kron_pair", "banded_apply",
+                           "chain_down", "chain_up") if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"sharded: kernels never ran: {missing}")
+    phase_wall(t_phase, "19")
+    return counts
+
+
 def phase_wall(t_phase: float, name: str) -> None:
     print(f"#   (phase {name} at {time.time() - t_phase:.1f} s)", flush=True)
 
@@ -2668,13 +2880,16 @@ def main() -> int:
                     "stokes": ("kron_pair", "banded_apply"),
                     "coefficient": ("time_solve", "quad_middle")}
     launches, by_path = dict.fromkeys(wrappers, 0), {}
-    for label, bench, args in (("heat", bench_heat, (16, 32)),
-                               ("wave", bench_wave, (8, 16)),
-                               ("stokes", bench_stokes, (8, 8))):
+    # timed slabs: 2 for heat; 1 for wave and Stokes (2 until phase 19)
+    for label, bench, args, n_slabs in (
+            ("heat", bench_heat, (16, 32), 2),
+            ("wave", bench_wave, (8, 16), MAIN_CUTS["wave"]),
+            ("stokes", bench_stokes, (8, 8), MAIN_CUTS["stokes"])):
         for w in wrappers.values():
             w.launches = 0
         wall0, cpu0 = time.time(), time.process_time()
-        info, _ = bench.run(*args, n_slabs=2, device="cuda", profile=True)
+        info, _ = bench.run(*args, n_slabs=n_slabs, device="cuda",
+                            profile=True)
         counts = {name: w.launches for name, w in wrappers.items()}
         wall, cpu = time.time() - wall0, time.process_time() - cpu0
         prof = info.pop("profile")
@@ -2804,6 +3019,14 @@ def main() -> int:
     for name, c in by_path["switches"].items():
         launches[name] += c
     phase_done("switches")
+
+    # 19. the sharded whole solve on 8 gloo processes sharing the card
+    #     (launches counted in the ranks, summed here), then on a one-rank
+    #     NCCL group
+    by_path["sharded"] = sharded_phase(smi, dev, gen)
+    for name, c in by_path["sharded"].items():
+        launches[name] += c
+    phase_done("sharded")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

@@ -7,6 +7,11 @@ Convergence semantics follow deal.II's ReductionControl: stop when
 ||r|| <= max(abstol, reltol * ||r0||) (the benches pass bench.py's abstol
 of 1e-30).  JAX's while_loop becomes a Python loop that reads back one
 scalar norm per step for the stop test.
+
+richardson_solve and fgmres take an optional norm (and fgmres a dot):
+the sharded solve passes the interface-weighted, all-reduced ones of
+parallel/sharding.py::RankLayout.krylov_options.  Without them they use
+the local 2-norm and products, as before.
 """
 from __future__ import annotations
 
@@ -32,18 +37,21 @@ def _norm(a) -> float:
 def richardson_solve(A: Callable, b: torch.Tensor, x0: torch.Tensor,
                      precondition: Callable, maxiter: int = 100,
                      reltol: float = 1e-8, omega: float = 1.0,
-                     abstol: float = 1e-30) -> SolveResult:
+                     abstol: float = 1e-30,
+                     norm: Callable | None = None) -> SolveResult:
     """x += omega P(b - A x) with a TRUE-residual stop test per step,
-    ||r|| <= max(abstol, reltol ||r0||) (stfem_tpu krylov.py:258-290)."""
+    ||r|| <= max(abstol, reltol ||r0||) (stfem_tpu krylov.py:258-290).
+    norm: a -> float (default the 2-norm)."""
+    norm = norm or _norm
     r = b - A(x0)
-    beta = _norm(r)
+    beta = norm(r)
     tol = max(abstol, reltol * beta)
     x, res, j = x0, beta, 0
     while j < maxiter and res > tol:
         step = precondition(r)
         x = x + (step if omega == 1.0 else omega * step)
         r = b - A(x)
-        res = _norm(r)
+        res = norm(r)
         j += 1
     return SolveResult(x=x, iterations=j,
                        residual=res / (beta if beta != 0 else 1.0),
@@ -142,7 +150,8 @@ def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
            precondition: Callable, maxiter: int = 100,
            reltol: float = 1e-12, abstol: float = 1e-12,
            reorthogonalize: bool | str = True, basis_dtype=None,
-           flexible: bool = True) -> SolveResult:
+           flexible: bool = True, norm: Callable | None = None,
+           dot: Callable | None = None) -> SolveResult:
     """GMRES without restart (basis size == maxiter), Givens rotations,
     stop on the Givens residual estimate, with stfem_tpu's options
     (krylov.py:40-81):
@@ -158,10 +167,14 @@ def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     flexible: False is right-preconditioned GMRES: no Z is kept and x =
         x0 + P(V y), one more preconditioner apply at the end; right only
         for a fixed linear P (the STMG V-cycle), where its iterates are
-        FGMRES's."""
+        FGMRES's.
+    norm: a -> float, and dot: (V [m, n], w [n]) -> V w, the basis rows
+        against a flattened vector (defaults: the 2-norm and V @ w)."""
+    norm = norm or _norm
+    _dot = dot or torch.matmul
     shape = b.shape
     r0 = b - A(x0)
-    beta = _norm(r0)
+    beta = norm(r0)
     tol = max(abstol, reltol * beta)
     V, Z = [], []
     H = torch.zeros((maxiter + 1, maxiter), dtype=torch.float64)
@@ -177,18 +190,18 @@ def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         w = A(z).reshape(-1)
         Vm = torch.stack(V).to(w.dtype)
         with full_precision():      # never TF32 in the orthogonalisation
-            w_pre = _norm(w) if reorthogonalize == "selective" else 0.0
-            h = Vm @ w
+            w_pre = norm(w) if reorthogonalize == "selective" else 0.0
+            h = _dot(Vm, w)
             w = w - Vm.T @ h
             if reorthogonalize == "selective":
-                again = _norm(w) < 0.7071 * w_pre
+                again = norm(w) < 0.7071 * w_pre
             else:
                 again = bool(reorthogonalize)
             if again:
-                h2 = Vm @ w
+                h2 = _dot(Vm, w)
                 w = w - Vm.T @ h2
                 h = h + h2
-        wnorm = _norm(w)
+        wnorm = norm(w)
         col = h.to(torch.float64).cpu().tolist() + [wnorm]
         for i in range(j):          # apply the earlier rotations
             a, c = col[i], col[i + 1]

@@ -87,8 +87,14 @@ class SlabResidual64:
         return out
 
     def residual(self, prev: torch.Tensor, x: torch.Tensor,
-                 fslab: torch.Tensor, prev_v: torch.Tensor | None = None):
-        """Returns (r, ||r||, ||rhs||); r has x's shape (float64)."""
+                 fslab: torch.Tensor, prev_v: torch.Tensor | None = None,
+                 accumulate=None, norm=None):
+        """Returns (r, ||r||, ||rhs||); r has x's shape (float64).
+
+        On a rank's slab (the engine and mask of its sub-mesh, fslab its
+        local assembly, prev and x consistent) r and rhs hold partial sums
+        on the shared planes: accumulate (a RankLayout's) completes both,
+        and norm (the interface-weighted global one) takes their norms."""
         with full_precision():
             rhs = self.rhs(prev, fslab, prev_v)
             nt, nc = self.nt, self.n_coupling
@@ -102,5 +108,7 @@ class SlabResidual64:
             y = (torch.einsum("ji,i...->j...", self.A, Kx)
                  + torch.einsum("ji,i...->j...", self.B, Mx)) * self.mask
             r = rhs - y.transpose(0, 1).reshape(x.shape)
-            return (r, torch.linalg.vector_norm(r.reshape(-1)),
-                    torch.linalg.vector_norm(rhs.reshape(-1)))
+            if accumulate is not None:
+                r, rhs = accumulate(r), accumulate(rhs)
+            norm = norm or (lambda a: torch.linalg.vector_norm(a.reshape(-1)))
+            return r, norm(r), norm(rhs)

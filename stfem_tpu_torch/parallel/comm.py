@@ -11,9 +11,17 @@ The reference's MPI traffic becomes three collectives:
     planes after a local operator apply (deal.II's compress(add),
     reference stmg.h:843-871);
   * psum_dot / psum_norm: an interface-weighted local sum and an
-    all_reduce (MPI::sum, operators.h:1387), the weights counting each
-    replicated plane once;
+    all_reduce (psum; MPI::sum, operators.h:1387), the weights counting
+    each replicated plane once;
   * gather_metadata: an all-gather of small control data.
+
+Every collective is counted per process (COUNTS: halo exchanges, one per
+sharded axis of a halo_accumulate; all-reduces; all-gathers; broadcasts),
+the counterpart of the collective counts stfem_tpu reads from the
+compiled HLO; reset_counters / read_counters.  A gloo group moves CUDA
+tensors through host buffers (the planes and scalars are copied to the
+host, sent, and copied back): the staging is chosen by the group's
+backend, and an NCCL group sends device memory directly.
 
 A sharded axis is a process group: the ranks along one dimension of a
 device mesh (two_level_mesh, sharding.spatial_mesh), its group-local rank
@@ -27,6 +35,19 @@ import torch
 import torch.distributed as dist
 
 
+COUNTS = {"halo_exchanges": 0, "all_reduces": 0, "all_gathers": 0,
+          "broadcasts": 0}
+
+
+def reset_counters() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+def read_counters() -> dict:
+    return dict(COUNTS)
+
+
 def _require_dist() -> None:
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("stfem_tpu_torch.parallel needs a process group: "
@@ -36,6 +57,35 @@ def _require_dist() -> None:
 
 def _groups(groups) -> tuple:
     return tuple(groups) if isinstance(groups, (tuple, list)) else (groups,)
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """True when t must pass through the host: a CUDA tensor on a gloo
+    group."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of t over the group's ranks (a new tensor on t's device;
+    t itself with one rank)."""
+    _require_dist()
+    if dist.get_world_size(group) == 1:
+        return t
+    COUNTS["all_reduces"] += 1
+    buf = t.cpu() if _staged(group, t) else t.clone()
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.device)
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """obj of the group's rank src (its global rank) on every rank."""
+    _require_dist()
+    if dist.get_world_size(group) == 1:
+        return obj
+    COUNTS["broadcasts"] += 1
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
 
 
 def halo_accumulate(y: torch.Tensor, group, array_axis: int,
@@ -57,6 +107,10 @@ def halo_accumulate(y: torch.Tensor, group, array_axis: int,
     right = idx + 1 if idx < n - 1 or periodic else None
     peer = (lambda i: dist.get_global_rank(group, i % n)) \
         if group is not None else (lambda i: i % n)
+    COUNTS["halo_exchanges"] += 1
+    staged = _staged(group, y)
+    if staged:
+        first, last = first.cpu(), last.cpu()
     from_left = torch.empty_like(last) if left is not None else None
     from_right = torch.empty_like(first) if right is not None else None
     # the sends first, then the receives, each pair in the same order on
@@ -74,6 +128,9 @@ def halo_accumulate(y: torch.Tensor, group, array_axis: int,
                               tag=1))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    if staged:
+        from_left, from_right = (None if t is None else t.to(y.device)
+                                 for t in (from_left, from_right))
     y = y.clone()
     if from_right is not None:
         y.narrow(array_axis, y.shape[array_axis] - 1, 1).add_(from_right)
@@ -117,20 +174,35 @@ def interface_weights(local_shape, groups, array_axes,
     return w
 
 
-def psum_dot(a: torch.Tensor, b: torch.Tensor, groups,
-             array_axes) -> torch.Tensor:
+def psum(t: torch.Tensor, groups) -> torch.Tensor:
+    """The sum of t over the ranks of the product of the axis groups (one
+    group, or a tuple of them; None: the default group): one all-reduce
+    over the world where the groups span it, else one per group in
+    turn."""
+    _require_dist()
+    groups = _groups(groups)
+    sizes = [dist.get_world_size(g) for g in groups]
+    if int(np.prod(sizes)) == dist.get_world_size():
+        return all_reduce(t, None)
+    for group in groups:
+        t = all_reduce(t, group)
+    return t
+
+
+def psum_dot(a: torch.Tensor, b: torch.Tensor, groups, array_axes,
+             weights: torch.Tensor | None = None) -> torch.Tensor:
     """The global <a, b> of per-rank arrays with replicated planes: the
-    weighted local sum, all-reduced over each sharded axis's group in
-    turn (a sum over the product of the axes)."""
-    w = interface_weights(a.shape, groups, array_axes, a.dtype, a.device)
-    total = torch.sum(w * a * b)
-    for group in _groups(groups):
-        dist.all_reduce(total, group=group)
-    return total
+    interface-weighted local sum (weights: interface_weights of a's
+    shape, computed here when not given), summed over the groups' ranks
+    (psum)."""
+    w = (interface_weights(a.shape, groups, array_axes, a.dtype, a.device)
+         if weights is None else weights)
+    return psum(torch.sum(w * a * b), groups)
 
 
-def psum_norm(a: torch.Tensor, groups, array_axes) -> torch.Tensor:
-    return torch.sqrt(psum_dot(a, a, groups, array_axes))
+def psum_norm(a: torch.Tensor, groups, array_axes,
+              weights: torch.Tensor | None = None) -> torch.Tensor:
+    return torch.sqrt(psum_dot(a, a, groups, array_axes, weights))
 
 
 def gather_metadata(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -139,15 +211,19 @@ def gather_metadata(x: torch.Tensor, group=None) -> torch.Tensor:
     psum_dot."""
     _require_dist()
     n = dist.get_world_size(group)
-    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    COUNTS["all_gathers"] += 1
+    src = x.reshape(-1).contiguous()
+    if _staged(group, src):
+        src = src.cpu()
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=src.device)
     # torch renamed the call; the older name stays where the newer is not
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    gather(out, x.reshape(-1).contiguous(), group=group)
-    return out.reshape((n,) + tuple(x.shape))
+    gather(out, src, group=group)
+    return out.to(x.device).reshape((n,) + tuple(x.shape))
 
 
-def two_level_mesh(n_slices: int, ici_shape, device_type: str = "cpu",
+def two_level_mesh(n_slices: int, ici_shape, device_type: str = "cuda",
                    axis_names=("dcn", "x", "y")):
     """The nested device mesh: a leading axis across slices (hosts), the
     trailing axes within one, as a DeviceMesh of shape (n_slices,

@@ -7,7 +7,8 @@ A rank owns a contiguous slab of cells along each split axis plus the
 dof plane it shares with a neighbour (replicated on both).  One sharded
 apply is the local operator on the rank's sub-mesh, then one neighbour
 exchange per sharded axis that adds the shared planes' partial sums
-(comm.halo_accumulate_nd).  The time direction stays block-local.
+(comm.halo_accumulate_nd): Accumulated, make_sharded_vmult.  The time
+direction stays block-local.
 """
 from __future__ import annotations
 
@@ -87,6 +88,19 @@ def local_mask(mesh_full: StructuredMesh, degree: int, shard, n_shards):
     return out
 
 
+class Accumulated:
+    """op's local apply on a rank's slab, then the shared planes' partial
+    sums added across the ranks by accumulate (comm.halo_accumulate_nd
+    over the mesh's groups, e.g. sharding.RankLayout.accumulate)."""
+
+    def __init__(self, op, accumulate):
+        self.op = op
+        self.accumulate = accumulate
+
+    def vmult(self, x, *args, **kwargs):
+        return self.accumulate(self.op.vmult(x, *args, **kwargs))
+
+
 def make_sharded_vmult(matrix_local, groups):
     """The sharded space-time apply on [n_blocks, *local dof grid]:
     matrix_local (a SystemMatrix of the rank's sub-mesh) applied to the
@@ -96,9 +110,5 @@ def make_sharded_vmult(matrix_local, groups):
     groups[i])."""
     groups = _groups(groups)
     array_axes = tuple(range(1, 1 + len(groups)))
-
-    def vmult(x_local: torch.Tensor) -> torch.Tensor:
-        return halo_accumulate_nd(matrix_local.vmult(x_local), groups,
-                                  array_axes)
-
-    return vmult
+    return Accumulated(matrix_local, lambda y: halo_accumulate_nd(
+        y, groups, array_axes)).vmult

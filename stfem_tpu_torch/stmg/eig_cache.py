@@ -93,15 +93,33 @@ def _write(path: str, cache: dict) -> None:
 class EstimateCache:
     """The disk cache as one hierarchy build sees it: `computed` and
     `read` count the estimates it ran and the ones it took from the
-    file."""
+    file or from `preset`.
 
-    def __init__(self, path: str | None):
+    preset: key -> [min, max] entries read before the file (another
+    process's estimates: the sharded solve's rank 0 estimates and sends
+    them to the other ranks).  `taken` records every keyed estimate this
+    build used, computed or read."""
+
+    def __init__(self, path: str | None, preset: dict | None = None):
         self.path = path
+        self.preset = dict(preset or {})
+        self.taken = {}
         self.computed = self.read = 0
 
     def estimate(self, key: str | None, compute) -> EigInfo:
-        """The cached EigInfo under key, else compute() (stored when its
-        max eigenvalue is finite and positive)."""
+        """The preset or cached EigInfo under key, else compute() (stored
+        when its max eigenvalue is finite and positive)."""
+        info = self._estimate(key, compute)
+        if key is not None:
+            self.taken[key] = [float(info.min_eigenvalue),
+                               float(info.max_eigenvalue)]
+        return info
+
+    def _estimate(self, key, compute) -> EigInfo:
+        if key is not None and key in self.preset:
+            self.read += 1
+            lo, hi = self.preset[key]
+            return EigInfo(min_eigenvalue=float(lo), max_eigenvalue=float(hi))
         if self.path is None or key is None:
             self.computed += 1
             return compute()

@@ -5,7 +5,8 @@ One GMG object owns the heat, wave or Stokes hierarchy: per-level slab
 operators (level dtype, bf16 with level_bf16), Vanka smoothers,
 Relaxation/Chebyshev/Identity smoother wiring with deterministic
 eigenvalue estimates, space transfers and dense time transfers.  The
-V-cycle has deal.II Multigrid semantics as stfem_tpu runs them:
+V-cycle has deal.II Multigrid semantics as stfem_tpu runs them (and
+distribute_gmg splits it over a mesh of ranks):
 
   pre-smooth:   u = S(d), then u += S(d - A u) for the level's further
                 steps (smoothing_steps x 2^(max_level - l) when variable)
@@ -48,6 +49,7 @@ of uniform coefficient-free levels are kept in a disk cache
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,6 +58,7 @@ import torch
 from ..krylov import gmres_fixed_left
 from ..mesh.grid import StructuredMesh
 from ..ops.spatial import LaplaceMassOperator
+from ..parallel.halo import Accumulated
 from ..system import SystemMatrix
 from ..time.mg_seq import (get_mg_sequence, get_poly_mg_sequence,
                            get_precondition_stmg_types)
@@ -324,6 +327,87 @@ class GMG:
     __call__ = vmult
 
 
+def _shard_level(lvl: _Level, layout) -> _Level:
+    """The rank's slab of a level: the local operator on its sub-mesh
+    under the global mask, the global smoother's omega (or Chebyshev
+    interval) and degree on the sliced Vanka, each apply accumulated."""
+    m = lvl.matrix
+    if m.route != "kron":
+        raise ValueError(f"a sharded level needs the separable (kron) "
+                         f"operator, not route {m.route!r}")
+    K, M = m.K, m.M
+    sub = layout.submesh(K.mesh)
+    mask = layout.mask(K.mesh, K.degree)
+    Kl, Ml = (LaplaceMassOperator(sub, op.degree, op.n_q, op.mass_scaling,
+                                  op.laplace_scaling, dtype=op.dtype,
+                                  device=op.device, mask=mask)
+              for op in (K, M))
+    tables = (t.to(torch.float64).cpu().numpy() for t in (m.Alpha, m.Beta))
+    matrix = Accumulated(SystemMatrix(Kl, Ml, *tables,
+                                      precision=m.precision, route="kron"),
+                         layout.accumulate)
+    smoother = lvl.smoother
+    if not isinstance(smoother, IdentitySmoother):
+        smoother = copy.copy(smoother)
+        smoother.matrix = matrix
+        smoother.precond = Accumulated(
+            lvl.smoother.precond.shard(layout.cell_ranges(K.cells)),
+            layout.accumulate)
+    return _Level(matrix=matrix, smoother=smoother, n_blocks=lvl.n_blocks,
+                  dof_shape=sub.dof_shape(K.degree))
+
+
+def distribute_gmg(gmg: GMG, policy, layout) -> GMG:
+    """This rank's distributed V-cycle of the global hierarchy `gmg` (the
+    counterpart of stfem_tpu's level_shardings / _constrain, gmg.py:177,
+    292-310), on a parallel/sharding.py::RankLayout.  policy[l] is
+    "sharded" or "replicated" (None: replicated) for level l, coarsest
+    first; the sharded levels are the finest ones, level 0 is replicated.
+
+    Every vector of a sharded level is the rank's consistent slab: each
+    operator and smoother apply is the local one on the rank's sub-mesh
+    then one accumulate, the Vanka the global one's slice
+    (PreconditionVanka.shard), the omegas, Chebyshev intervals and
+    sweeps the global smoothers' (an estimate on a sub-mesh gives
+    another).  Replicated levels are the global ones, the coarse inverse
+    the global one: every rank computes the same.  Time transfers are
+    block-local; a space transfer out of a sharded level is the
+    transfers.py ShardedSpaceTransfer.  gmg is left as it is."""
+    n = len(gmg.levels)
+    policy = ["replicated" if p is None else p for p in policy]
+    if len(policy) != n or any(p not in ("sharded", "replicated")
+                               for p in policy):
+        raise ValueError(f"policy: one of 'sharded' / 'replicated' per "
+                         f"level ({n}), not {policy}")
+    if policy[0] == "sharded":
+        raise ValueError("the coarsest level is replicated (its direct "
+                         "inverse is applied on every rank)")
+    if any(policy[l] == "sharded" and policy[l + 1] == "replicated"
+           for l in range(n - 1)):
+        raise ValueError(f"policy {policy}: a replicated level above a "
+                         "sharded one")
+    levels, transfers = list(gmg.levels), list(gmg.transfers)
+    for l in range(1, n):
+        if policy[l] == "replicated":
+            continue
+        levels[l] = _shard_level(gmg.levels[l], layout)
+        t = gmg.transfers[l - 1]
+        if isinstance(t, TimeTransfer):
+            if policy[l - 1] != "sharded":
+                raise ValueError(f"levels {l - 1}, {l}: a time transfer "
+                                 "between a replicated and a sharded level")
+            continue
+        fine, coarse = gmg.levels[l].matrix.K, gmg.levels[l - 1].matrix.K
+        transfers[l - 1] = t.shard(layout, fine.cells, fine.degree,
+                                   coarse.cells, coarse.degree,
+                                   coarse_replicated=policy[l - 1]
+                                   == "replicated")
+    out = copy.copy(gmg)
+    out.levels, out.transfers = levels, transfers
+    out.level_policy = policy
+    return out
+
+
 def _cycle_options(params: GMGParams) -> dict:
     """GMG's V-cycle arguments from params."""
     return dict(variable=params.variable,
@@ -392,7 +476,8 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                use_pmg: bool = True, fe_degree_min: int | None = None,
                n_timesteps_at_once_min: int | None = None,
                poly_coarsening=PolynomialCoarseningSequenceType.bisect,
-               laplace_coefficient=None) -> GMG:
+               laplace_coefficient=None,
+               estimate_cache: EstimateCache | None = None) -> GMG:
     """Assemble the STMG hierarchy for the heat or wave cycle with
     stfem_tpu's ladder conventions (stfem_tpu/stmg/gmg.py::build_stmg):
     the space p-sequence bisects space_degree down to 1, the time
@@ -407,8 +492,9 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
     cell-local Vanka, and its eigenvalues are estimated on the level
     itself too.
     Everything lives on `device`; the estimates sweep there, or come from
-    the disk cache (stmg/eig_cache.py); gmg.estimates counts the ones
-    computed and the ones read."""
+    the disk cache (stmg/eig_cache.py), or from `estimate_cache` where the
+    caller gives one; gmg.estimates counts the ones computed and the ones
+    read, gmg.estimate_entries holds every keyed one."""
     params = params or GMGParams()
     if params.level_bf16:
         dtype = torch.bfloat16
@@ -478,7 +564,7 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
 
     bases = {}          # cell-local patch eigenbases, one per (K, M)
     storage = torch.bfloat16 if params.vanka_bf16 else None
-    cache = EstimateCache(cache_path())
+    cache = estimate_cache or EstimateCache(cache_path())
 
     def vanka(K, M, A, B, n_steps):
         basis = None
@@ -579,6 +665,7 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
               **_cycle_options(params))
     gmg.mg_type_level = mg_type_level
     gmg.estimates = {"computed": cache.computed, "read": cache.read}
+    gmg.estimate_entries = dict(cache.taken)
     return gmg
 
 

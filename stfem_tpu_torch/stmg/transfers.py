@@ -8,6 +8,17 @@ restriction is the transpose of prolongation (restrict_is_transpose_
 prolongate, the reference default, parameters.h:29) or, with that flag
 off, the interpolation down (the L2 projection for k, the two-interval
 restriction for tau).
+
+On levels split over ranks (stmg/gmg.py::distribute_gmg) the time
+transfers are block-local and stay as they are; a space transfer becomes
+a ShardedSpaceTransfer, whose matrices and masks are the global ones'
+slices for the rank's dofs.  Prolongation of a consistent coarse slab is
+consistent as it is (a fine dof on a shared face interpolates from the
+coarse dofs on that face).  Restriction counts a shared fine plane once
+per rank, so its input is weighted by the interface weights first and
+the coarse result accumulated; into a replicated coarse level the
+weighted partial results over the whole coarse grid are summed in one
+all-reduce.
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ import torch
 
 from ..mesh.fe import p_interpolation_1d, prolongation_1d
 from ..ops.gridsumfac import axis_apply, promote
+from ..parallel.comm import all_reduce
 from ..time.transfer import (get_time_projection_matrix,
                              get_time_prolongation_matrix,
                              get_time_restriction_matrix)
@@ -67,6 +79,50 @@ class SpaceTransfer:
     def restrict(self, xf):
         return self._apply_axes(xf * self.fine_mask,
                                 [p.T for p in self.P]) * self.coarse_mask
+
+    def shard(self, layout, fine_cells, fine_degree: int, coarse_cells,
+              coarse_degree: int, coarse_replicated: bool = False):
+        """The rank's transfer (a ShardedSpaceTransfer) between its slab
+        of the fine level (cells per axis fine_cells, degree fine_degree)
+        and its slab of the coarse level, or the whole coarse level when
+        that is replicated.  layout: parallel/sharding.py::RankLayout."""
+        rf = layout.cell_ranges(fine_cells)
+        rc = layout.cell_ranges(coarse_cells)
+        kf, kc = fine_degree, coarse_degree
+        fine = [slice(lo * kf, hi * kf + 1) for lo, hi in rf]
+        coarse = [slice(None) if coarse_replicated
+                  else slice(lo * kc, hi * kc + 1) for lo, hi in rc]
+        P = [p[f, c].contiguous() for p, f, c in zip(self.P, fine, coarse)]
+        return ShardedSpaceTransfer(
+            P, self.fine_mask[tuple(fine)], self.coarse_mask[tuple(coarse)],
+            layout, coarse_replicated)
+
+
+class ShardedSpaceTransfer(SpaceTransfer):
+    """A SpaceTransfer between a rank's consistent fine slab and its
+    coarse slab (or the replicated coarse level): restriction weights the
+    fine slab by the interface weights, applies the local P^T and
+    accumulates the coarse partial sums (or all-reduces them over the
+    whole coarse grid)."""
+
+    def __init__(self, P, fine_mask, coarse_mask, layout,
+                 coarse_replicated: bool):
+        self.P = P
+        self.coarse_mask = coarse_mask
+        self.dim = len(P)
+        self.layout = layout
+        self.coarse_replicated = coarse_replicated
+        w = layout.weights((1,) + tuple(fine_mask.shape), fine_mask.dtype,
+                           fine_mask.device)[0]
+        self.fine_mask = fine_mask
+        self.fine_weighted = fine_mask * w
+
+    def restrict(self, xf):
+        yc = self._apply_axes(xf * self.fine_weighted,
+                              [p.T for p in self.P]) * self.coarse_mask
+        if self.coarse_replicated:
+            return all_reduce(yc, None)
+        return self.layout.accumulate(yc)
 
 
 class TimeTransfer:

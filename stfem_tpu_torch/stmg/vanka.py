@@ -31,8 +31,20 @@ axis (kernel K1 for multi-step slabs, as in grid mode) -> V -> scatter.
 The factors are built in float64 on the host and stored in the level
 dtype.  The dense reference-style patch inverse (mode "dense") is not
 ported.
+
+On a level split over ranks (stmg/gmg.py::distribute_gmg) a rank's grid
+Vanka is the global one's slice (PreconditionVanka.shard): its cells'
+rows of Wdn and Wup and its cells' eigen-positions of the time factors.
+So the 1D valence is the global grid's (2 on a plane shared with a
+neighbour rank, where a sub-mesh of its own would count 1), the masks
+are the global ones (a shared plane is interior), and each cell's patch
+eigenbasis is the global assembled matrices' (a cell at a rank's edge
+sees its neighbour's half of the shared node).  The up chain leaves
+partial sums on the shared planes: the caller accumulates them.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -230,6 +242,45 @@ class PreconditionVanka:
             B_ = as_t(Beta, self.dtype).to(fdt)
             self.TTg = torch.linalg.inv(lam[:, None, None] * A_ + B_
                                         ).permute(1, 2, 0).contiguous()
+
+    def shard(self, cell_ranges) -> "PreconditionVanka":
+        """This Vanka restricted to the cells [lo, hi) of each axis
+        (cell_ranges, one pair per axis): a grid-mode copy whose matrices
+        and time factors are the global ones' slices (module docstring);
+        its vmult leaves partial sums on the slab's end planes.  Raises
+        ValueError in cell mode, whose valence and masks are the level's
+        own."""
+        if self.mode != "grid":
+            raise ValueError("a sharded level needs the grid-mode Vanka; "
+                             "cell mode (a coefficient, cell mask or "
+                             "distorted geometry) is not split")
+        k, dim = self.k, self.dim
+        out = copy.copy(self)
+        out.cells = tuple(hi - lo for lo, hi in cell_ranges)
+        out.Wdn = [self.Wdn[d][lo * (k + 1):hi * (k + 1),
+                               lo * k:hi * k + 1].contiguous()
+                   for d, (lo, hi) in enumerate(cell_ranges)]
+        out.Wup = [self.Wup[d][lo * k:hi * k + 1,
+                               lo * (k + 1):hi * (k + 1)].contiguous()
+                   for d, (lo, hi) in enumerate(cell_ranges)]
+        out.check_blocks()
+        # the eigen-positions in the interleaved (c1, a1, c2, a2, ..) order
+        grid = []
+        for d in range(dim):
+            grid += [int(self.cells[d]), k + 1]
+        index = tuple(slice(lo, hi) for lo, hi in cell_ranges)
+        sel = sum(((sl, slice(None)) for sl in index), ())
+
+        def positions(t):
+            if t is None:
+                return None
+            lead = t.shape[:-1]
+            return t.reshape(lead + tuple(grid))[(Ellipsis,) + sel] \
+                .reshape(lead + (-1,)).contiguous()
+
+        out.GinvT, out.cvecT, out.TTg = (positions(t) for t in
+                                         (self.GinvT, self.cvecT, self.TTg))
+        return out
 
     def check_blocks(self) -> None:
         """The cell-blocked pattern of Wdn / Wup that K4 relies on (cell c

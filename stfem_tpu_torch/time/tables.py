@@ -2,10 +2,11 @@
 
 Dense (tiny) matrices defining the CGP(r) / DG(r) time discretizations and
 their multi-timestep block assembly, the Schur-reduced wave tables, the
-two-variable Stokes tables and the nonlinear extrapolation (Picard
-predictor) tables.  All NumPy float64, computed at setup time;
-parity oracle is the reference's golden file tests/tp_02.output
-(reference: include/fe_time.h:157-744, include/fe_time.cc).
+two-variable Stokes and evolutionary tables and the nonlinear
+extrapolation (Picard predictor) tables.  All NumPy float64, computed at
+setup time; parity oracle is the reference's golden file
+tests/tp_02.output (reference: include/fe_time.h:157-744,
+include/fe_time.cc).
 
 Conventions (identical to the reference):
   * the slab system for first-order problems reads
@@ -378,4 +379,30 @@ def get_fe_time_weights_stokes(type_: TimeStepType, r: int,
             Z[rows, 0] = z[:, 0]
         if iv == 1 and type_ == TimeStepType.CGP:
             G[rows, 0] = g[:, 0]
+    return A, B, G, Z
+
+
+def get_fe_time_weights_2variable_evolutionary(type_: TimeStepType, r: int,
+                                               time_step_size: float,
+                                               n_timesteps_at_once: int = 1):
+    """Generic coupled two-variable evolutionary system: each variable's
+    time derivative (Beta, and the columns Gamma, Zeta) couples it to
+    itself, the spatial operator (Alpha) to the other variable (reference
+    include/fe_time.h:1288-1325)."""
+    from ..blocks import BlockSlice
+    a, b, g, z = get_fe_time_weights(type_, r, time_step_size,
+                                     n_timesteps_at_once)
+    n = a.shape[0]
+    blk = BlockSlice(n_timesteps_at_once, 2,
+                     r + 1 if type_ == TimeStepType.DG else r)
+    A = np.zeros((2 * n, 2 * n))
+    B = np.zeros((2 * n, 2 * n))
+    G = np.zeros((2 * n, 1))
+    Z = np.zeros((2 * n, 1))
+    for iv in range(2):
+        rows = blk.get_time(iv)
+        A[np.ix_(rows, blk.get_time(1 - iv))] = a
+        B[np.ix_(rows, rows)] = b
+        G[rows, 0] = g[:, 0]
+        Z[rows, 0] = z[:, 0]
     return A, B, G, Z

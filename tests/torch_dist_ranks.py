@@ -66,7 +66,7 @@ def run_ranks(rank: int, init_file: str, out_dir: str, cases: dict):
             out["open"] = halo_accumulate(y, first4, 0).numpy()
         # the 2 x 4 mesh (corners shared by 4 ranks), degree 2, and the
         # interface-weighted dots, degree 3
-        dm = spatial_mesh(WORLD, dim=2)
+        dm = spatial_mesh(WORLD, dim=2, device_type="cpu")
         shape = tuple(dm.mesh.shape)
         coord = tuple(int(c) for c in dm.get_coordinate())
         groups = (dm.get_group("x"), dm.get_group("y"))
@@ -85,7 +85,7 @@ def run_ranks(rank: int, init_file: str, out_dir: str, cases: dict):
         # array split over ("x", "y") and replicated over "dcn"
         from torch.distributed.tensor import (Replicate, Shard,
                                               distribute_tensor)
-        tl = two_level_mesh(2, (2, 2))
+        tl = two_level_mesh(2, (2, 2), device_type="cpu")
         out["two_level_names"] = np.array(tl.mesh_dim_names)
         out["two_level_shape"] = np.array(tuple(tl.mesh.shape))
         tile = distribute_tensor(torch.zeros((2, 4, 4)), tl,
