@@ -255,6 +255,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (a)'s solve in this process: the same iterations and the solution
      bitwise the unsharded one's, no collective.  Its estimates go
      through a fresh cache file that (a) fills and (c) reads.
+ 20. the last surface (last_surface_phase): (a) run_heat_cycle with
+     tp_01's 3D heat discretisation (Q2 x dG(1), 4 steps at once) under
+     the time-only ladder (build_stmg(time_only=True), space_or_time, to
+     1 step: every level on the fine mesh; LAST_SURFACE_3D), per slab the
+     FGMRES iterations, wall, K1/K2/K4 launches and a true FP64 residual
+     through element matrices within 2x of the stop test; after the
+     march, K2 on the outer operator's factors (8 x 65^3, k=2; rel
+     1e-14) and, on every level, the Vanka's K4 down, K1 (multi-step
+     levels) and K4 up (rel 1e-5) against their plain versions at the
+     path's shapes and with its matrices; then tests/test_aux.py's 2D
+     configuration on the card against the CPU
+     (norms 1e-8, iterations within 1: float32 rounding sets them);
+     (b) the grid-mode (K4, K1, K4) and, with a coefficient field, the
+     cell-mode (K1) Vanka in float32 against PreconditionVanka(mode=
+     "dense") in float64 on a 4^3 Q2 x dG(1) x 4-step level (rel 1e-5);
+     (c) SystemMatrix.Tvmult in FP64 at phase 4's shape (route "kron",
+     K2) and phase 5b's (route "quad", K5) against a plain evaluation
+     (kron_pair_reference or quad_middle_reference on the input premixed
+     by the transposed tables), against vmult of the transposed tables
+     (1e-12) and the adjoint identity (1e-12).  The
+     launches of (a) and (c) are the path's (launches_by_path "last
+     surface").
 Then it prints the smoke's total wall, the nvidia-smi line, a JSON line
 describing the kernels (launches over all main paths and by path), and,
 last, {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -2322,6 +2344,59 @@ SHARDED_CASES = (("(a)", dict(cells=8, ntao=8)),
                  ("(b)", dict(cells=16, ntao=32)))
 
 
+def kron_pair_check(kron, x, label: str) -> None:
+    """K2 on the FP64 input x with a KronAssembled's own factors against
+    its plain version: rel 1e-14 of the max entry, as phase 4."""
+    from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
+
+    got, ref = (f(x, kron.Md, kron.Ad, kron.k)
+                for f in (kron_pair, kron_pair_reference))
+    rel = max(float((g - r).abs().max() / r.abs().max())
+              for g, r in zip(got, ref))
+    print(f"# {label}: rel to max {rel:.3e} (tol 1e-14)", flush=True)
+    if not rel <= 1e-14:
+        raise AssertionError(f"{label}: K2 disagrees with its plain version")
+
+
+def vanka_kernel_checks(van, dof_shape, gen, dev, label: str) -> None:
+    """A grid-mode Vanka's kernels against their plain versions with its
+    own matrices, on a random input of its level's shape: K4 down, K1
+    (where it solves several steps at once) and K4 up, in its dtype (rel
+    1e-5 of the max entry, as phases 3 and 5)."""
+    import torch
+    from stfem_tpu_torch.ops.grid_chain import (chain_down,
+                                                chain_down_reference,
+                                                chain_up, chain_up_reference)
+    from stfem_tpu_torch.ops.time_solve import (time_solve,
+                                                time_solve_reference)
+
+    nb = van.n_blocks
+    src = torch.randn((nb,) + tuple(dof_shape), generator=gen,
+                      device=dev).to(van.dtype)
+    w = chain_down(src, van.Wdn, cells=van.cells, k=van.k)
+    rels = {"K4 down": (w, chain_down_reference(src, van.Wdn))}
+    up_in = w
+    if van.n_steps > 1:
+        S, wf = van.n_steps, w.reshape(nb, -1)
+        t = time_solve(wf, van.GinvT, van.cvecT, S, nb // S, wf.dtype)
+        rels["K1"] = (t, time_solve_reference(wf, van.GinvT, van.cvecT,
+                                              S, nb // S, wf.dtype))
+        up_in = t.reshape(w.shape).to(van.dtype)
+    y = chain_up(up_in, van.Wup, cells=van.cells, k=van.k)
+    rels["K4 up"] = (y, chain_up_reference(up_in, van.Wup))
+    rels = {n: float((g.float() - r.float()).abs().max()
+                     / r.float().abs().max())
+            for n, (g, r) in rels.items()}
+    print(f"# {label} {nb} x {tuple(src.shape[1:])} Q{van.k} cells "
+          f"{van.cells} {str(van.dtype)[6:]} (steps {van.n_steps}, K1 N = "
+          f"{w[0].numel()}): rel to max "
+          f"{ {n: f'{r:.3e}' for n, r in rels.items()} } (tol 1e-5)",
+          flush=True)
+    if not all(r <= 1e-5 for r in rels.values()):
+        raise AssertionError(f"{label}: a kernel disagrees with its plain "
+                             "version")
+
+
 def sharded_kernel_checks(dev, gen, label: str, kw: dict) -> None:
     """Phase 19's kernels against their plain versions at the shapes, and
     with the matrices, that the sharded solve of case kw gives them on a
@@ -2333,15 +2408,9 @@ def sharded_kernel_checks(dev, gen, label: str, kw: dict) -> None:
     float32 (rel 1e-5, as phases 3 and 5).  The global hierarchy is
     rebuilt here from the estimates the ranks left in the cache."""
     import torch
-    from stfem_tpu_torch.ops.grid_chain import (chain_down,
-                                                chain_down_reference,
-                                                chain_up, chain_up_reference)
-    from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
     from stfem_tpu_torch.ops.kronfac import KronAssembled
     from stfem_tpu_torch.ops.slab_residual import SlabResidual64
     from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
-    from stfem_tpu_torch.ops.time_solve import (time_solve,
-                                                time_solve_reference)
     from stfem_tpu_torch.parallel.minibench import hierarchy, minibench_mesh
     from stfem_tpu_torch.parallel.sharding import (RankLayout,
                                                    level_sharding_policy)
@@ -2361,17 +2430,10 @@ def sharded_kernel_checks(dev, gen, label: str, kw: dict) -> None:
     x = torch.randn((resid.n_coupling + resid.nt,
                      resid.n_blocks // resid.nt) + sub.dof_shape(4),
                     generator=gen, device=dev, dtype=f64)
-    got, ref = (f(x, kron.Md, kron.Ad, kron.k)
-                for f in (kron_pair, kron_pair_reference))
-    rel = max(float((g - r).abs().max() / r.abs().max())
-              for g, r in zip(got, ref))
-    print(f"# sharded {label} K2 kron_pair f64 {tuple(x.shape)} k=4 (the "
-          f"residual's pair on a rank's sub-mesh): rel to max {rel:.3e} "
-          f"(tol 1e-14)", flush=True)
-    if not rel <= 1e-14:
-        raise AssertionError(f"sharded {label}: K2 disagrees with its plain "
-                             "version")
-    del x, got, ref, kron, resid
+    kron_pair_check(kron, x, f"sharded {label} K2 kron_pair f64 "
+                    f"{tuple(x.shape)} k=4 (the residual's pair on a "
+                    "rank's sub-mesh)")
+    del x, kron, resid
     policy = level_sharding_policy(8, gmg, min_dofs_per_device=2048)
     for lvl_idx, p in enumerate(policy):
         lvl = gmg.levels[lvl_idx]
@@ -2380,32 +2442,9 @@ def sharded_kernel_checks(dev, gen, label: str, kw: dict) -> None:
             continue
         K = lvl.matrix.K
         van = vanka.shard(layout.cell_ranges(K.cells))
-        nb = lvl.n_blocks
-        src = torch.randn((nb,) + layout.submesh(K.mesh).dof_shape(K.degree),
-                          generator=gen, device=dev).to(van.dtype)
-        w = chain_down(src, van.Wdn, cells=van.cells, k=van.k)
-        rels = {"K4 down": (w, chain_down_reference(src, van.Wdn))}
-        up_in = w
-        if van.n_steps > 1:
-            S, wf = van.n_steps, w.reshape(nb, -1)
-            t = time_solve(wf, van.GinvT, van.cvecT, S, nb // S, wf.dtype)
-            rels["K1"] = (t, time_solve_reference(wf, van.GinvT, van.cvecT,
-                                                  S, nb // S, wf.dtype))
-            up_in = t.reshape(w.shape).to(van.dtype)
-        y = chain_up(up_in, van.Wup, cells=van.cells, k=van.k)
-        rels["K4 up"] = (y, chain_up_reference(up_in, van.Wup))
-        rels = {n: float((g.float() - r.float()).abs().max()
-                         / r.float().abs().max())
-                for n, (g, r) in rels.items()}
-        print(f"# sharded {label} level {lvl_idx} Vanka {nb} x "
-              f"{tuple(src.shape[1:])} Q{van.k} cells {van.cells} "
-              f"{str(van.dtype)[6:]} (steps {van.n_steps}, K1 N = "
-              f"{w[0].numel()}): rel to max "
-              f"{ {n: f'{r:.3e}' for n, r in rels.items()} } (tol 1e-5)",
-              flush=True)
-        if not all(r <= 1e-5 for r in rels.values()):
-            raise AssertionError(f"sharded {label} level {lvl_idx}: a "
-                                 "kernel disagrees with its plain version")
+        vanka_kernel_checks(
+            van, layout.submesh(K.mesh).dof_shape(K.degree), gen, dev,
+            f"sharded {label} level {lvl_idx} Vanka")
     del gmg
     torch.cuda.empty_cache()
 
@@ -2489,6 +2528,332 @@ def sharded_phase(smi: str, dev, gen) -> dict:
     if missing:
         raise AssertionError(f"sharded: kernels never ran: {missing}")
     phase_wall(t_phase, "19")
+    return counts
+
+
+# phase 20: the last surface -- time-only multigrid (the reference's
+# transfer_01 runs) at tp_01's 3D heat discretisation, the card's Vanka
+# kernels against the dense reference Vanka, SystemMatrix.Tvmult on K2
+# and K5.  LAST_SURFACE_3D: the time-only march, 32^3 (2 of its 16
+# slabs; 16^3 took 6.3 s for the whole phase, 32^3 6.6 s for (a) alone)
+LAST_SURFACE_3D = dict(refinement=5, n_slabs=2)
+
+
+def _time_only_factory():
+    from stfem_tpu_torch.drivers.heat import stmg_preconditioner_factory
+    from stfem_tpu_torch.types import CoarseningType
+    return stmg_preconditioner_factory(
+        fe_degree_min=1, time_only=True, n_timesteps_at_once_min=1,
+        coarsening_type=CoarseningType.space_or_time)
+
+
+def time_only_phase(wrappers, dev, gen, smi) -> dict:
+    """Phase 20(a): run_heat_cycle with tp_01's 3D heat discretisation (Q2
+    x dG(1), 4 steps at once, FGMRES rel 1e-12) under the time-only
+    ladder (space_or_time, to 1 step and dG(1): every level on the fine
+    mesh, its Vanka the coarse solve) for LAST_SURFACE_3D's slabs.  Per
+    slab the FGMRES iterations, the slab wall, the K1/K2/K4 launches
+    (the first slab's with the setup's estimates) and a true FP64
+    residual through masked element matrices (no code shared with the
+    "kron" route), within 2x of FGMRES's stop test.  After the march the
+    path's kernels are held against their plain versions at its shapes
+    and with its matrices: K2 on the outer operator's factors (rel 1e-14)
+    and, on every level, the Vanka's K4 down, K1 and K4 up (rel 1e-5).
+    Then
+    tests/test_aux.py's 2D configuration on the card and on the CPU: the
+    error norms within 1e-8 and the iterations within one a slab -- the
+    float32 V-cycle's rounding sets that count (the card read 10, 9 and
+    the CPU 9, 10; tests/test_torch_time_only.py holds the float64
+    V-cycles' counts equal to stfem_tpu's).  Returns the launches of the
+    3D run; K1, K2 and K4 must launch."""
+    import torch
+    from stfem_tpu_torch.drivers.heat import run_heat_cycle
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+    from stfem_tpu_torch.utils.timer import TimerOutput
+
+    t_phase = time.time()
+    f64 = torch.float64
+    ref, n_slabs = LAST_SURFACE_3D["refinement"], LAST_SURFACE_3D["n_slabs"]
+    names = {"K1": ("time_solve",), "K2": ("kron_pair",),
+             "K3": ("banded_apply",), "K4": ("chain_down", "chain_up")}
+    for w in wrappers.values():
+        w.launches = 0
+    rows, held, last = [], {}, dict.fromkeys(wrappers, 0)
+
+    def on_slab(integ, t, dt, prev, x, stats):
+        saved = {name: w.launches for name, w in wrappers.items()}
+        slab = {k: sum(saved[n] - last[n] for n in ns)
+                for k, ns in names.items()}
+        last.update(saved)
+        K, M = integ.matrix.K, integ.matrix.M
+        if "EK" not in held:
+            held.update(EK=K.element_matrices(), EM=M.element_matrices(),
+                        gmg=integ.preconditioner, outer=integ.matrix)
+        EK, EM, cells, mask = held["EK"], held["EM"], K.cells, K.mask
+        A, B, G, _ = (torch.as_tensor(t_, dtype=f64, device=dev)
+                      for t_ in get_fe_time_weights(TimeStepType.DG, 1, dt,
+                                                    4))
+
+        def apply(v):
+            return mask * (torch.einsum("ji,i...->j...", A,
+                                        _element_apply(EK, v, cells, 2))
+                           + torch.einsum("ji,i...->j...", B,
+                                          _element_apply(EM, v, cells, 2)))
+
+        rhs = (G[:, 0].reshape(-1, 1, 1, 1)
+               * (mask * _element_apply(EM, prev, cells, 2))[None]
+               + integ.assemble_force(t, dt))
+        rn = float((rhs - apply(mask * x)).norm())
+        r0 = float((rhs - apply(mask * integ._extrapolate(prev))).norm())
+        tol = max(integ.abstol, integ.reltol * r0)
+        rows.append((stats.iterations, rn, tol, slab))
+        for name, w in wrappers.items():
+            w.launches = saved[name]
+
+    timer = TimerOutput()
+    t0 = time.time()
+    res = run_heat_cycle(
+        refinement=ref, fe_degree=1, type_=TimeStepType.DG,
+        n_timesteps_at_once=4, subdivisions=(1, 1, 1), lower=(0.0,) * 3,
+        upper=(1.0,) * 3, preconditioner_factory=_time_only_factory(),
+        timer=timer, device=dev, on_slab=on_slab, n_slabs_max=n_slabs)
+    wall = time.time() - t0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    walls = timer.times["step"]
+    st = res.n_blocks * res.n_dofs
+    gmg, outer = held.pop("gmg"), held.pop("outer")
+    print(f"# time-only 3D {2 ** ref}^3 Q2 x dG(1), 4 steps at once ({st} "
+          f"space-time DoFs a slab), {len(rows)} of {2 ** (ref + 1) // 4} "
+          f"slabs, {len(gmg.levels)} levels "
+          f"{[m.name for m in gmg.mg_type_level]} all on the fine mesh "
+          f"({_vanka_levels(gmg)}); setup {timer.totals['setup']:.2f} s "
+          f"(hierarchy {timer.totals['setup:gmg']:.2f} s); run wall "
+          f"{wall:.1f} s ({smi})", flush=True)
+    for i, ((its, rn, tol, slab), w) in enumerate(zip(rows, walls)):
+        print(f"#   slab {i + 1}: FGMRES iterations {its}, slab wall "
+              f"{w:.4f} s ({st / w:.4e} space-time DoF/s), launches {slab}"
+              f"{' (with the setup)' if i == 0 else ''}; true FP64 ||r|| "
+              f"{rn:.3e} vs FGMRES tol {tol:.3e} (ratio {rn / tol:.3f}, "
+              f"bar 2) ({smi})", flush=True)
+    del held
+    x = torch.randn((outer.n_blocks,) + tuple(outer.dof_shape),
+                    generator=gen, device=dev, dtype=f64)
+    if outer.route != "kron":
+        raise AssertionError(f"time-only 3D: outer route {outer.route}")
+    kron_pair_check(outer._kron, x, f"time-only K2 kron_pair f64 "
+                    f"{tuple(x.shape)} k={outer._kron.k} (the outer "
+                    "operator's pair)")
+    del x, outer
+    for i, level in enumerate(gmg.levels):
+        van = getattr(level.smoother, "precond", None)
+        if van is None:
+            continue
+        if van.mode != "grid":
+            raise AssertionError(f"time-only level {i}: {van.mode} Vanka")
+        vanka_kernel_checks(van, level.matrix.K.dof_shape, gen, dev,
+                            f"time-only level {i} Vanka")
+    del gmg
+    torch.cuda.empty_cache()
+    total = {k: sum(counts[n] for n in ns) for k, ns in names.items()}
+    missing = [k for k in ("K1", "K2", "K4") if total[k] == 0]
+    print(f"# time-only 3D: L2-L2 {res.l2_l2:.6e}, K1-K4 launches {total}, "
+          f"not launched {missing}", flush=True)
+    if (len(rows) != n_slabs or any(r[1] > 2.0 * r[2] for r in rows)
+            or missing):
+        raise AssertionError("time-only 3D: a slab missed its residual or "
+                             "a kernel never ran")
+
+    # tests/test_aux.py's 2D configuration, card against CPU
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.time()
+        r = run_heat_cycle(refinement=2, fe_degree=1, type_=TimeStepType.DG,
+                           n_timesteps_at_once=4, gmres_maxiter=60,
+                           preconditioner_factory=_time_only_factory(),
+                           device=d)
+        out[d.type] = (r, time.time() - t0)
+    (rg, wg), (rc, wc) = out["cuda"], out["cpu"]
+    diffs = {n: abs(getattr(rg, n) / getattr(rc, n) - 1.0)
+             for n in ("l2_l2", "linf_linf", "l2_h1")}
+    print(f"# time-only 2D (tests/test_aux.py: refinement 2, DG(1), 4 steps "
+          f"at once): FGMRES iterations a slab card {rg.slab_iterations} "
+          f"CPU {rc.slab_iterations} (stfem_tpu 10, 10; within 1); L2-L2 card "
+          f"{rg.l2_l2:.9e} CPU {rc.l2_l2:.9e}; norms' relative gaps "
+          f"{ {n: f'{v:.2e}' for n, v in diffs.items()} } (tol 1e-8); walls "
+          f"card {wg:.2f} s CPU {wc:.2f} s ({smi}); phase wall "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    if not (len(rg.slab_iterations) == len(rc.slab_iterations)
+            and all(abs(a - b) <= 1 for a, b in zip(rg.slab_iterations,
+                                                    rc.slab_iterations))
+            and all(v <= 1e-8 for v in diffs.values())
+            and rg.l2_l2 < 2e-2):
+        raise AssertionError("time-only 2D: the card differs from the CPU")
+    return counts
+
+
+def dense_vanka_checks(wrappers, dev, gen, smi) -> None:
+    """Phase 20(b): on a 3D Q2 x dG(1) level with 4^3 cells and 4 steps
+    at once (T A = 8 x 27), the grid-mode Vanka in float32 (K4 down, K1,
+    K4 up) and, with a coefficient field, the cell-mode Vanka in float32
+    (K1) against the dense reference Vanka of the same level in float64
+    (one batched inverse of each cell's 216 x 216 patch): relative 1e-5
+    of the max entry.  The launches here are not the path's."""
+    import torch
+    from stfem_tpu_torch.mesh.grid import StructuredMesh
+    from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
+    from stfem_tpu_torch.problems.coefficient import Coefficient
+    from stfem_tpu_torch.stmg.vanka import PreconditionVanka
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+
+    saved = {name: w.launches for name, w in wrappers.items()}
+    mesh = StructuredMesh([4, 4, 4], [0.0] * 3, [1.0] * 3)
+    A, B = get_fe_time_weights(TimeStepType.DG, 1, 1.0 / 16, 4)[:2]
+    coef = Coefficient([2, 2, 2], [0.0] * 3, [1.0] * 3, 0.5)
+    for label, c in (("grid", None), ("cell", coef)):
+        ops = {dt: (LaplaceMassOperator(mesh, 2, 3, 0.0, 1.0, dtype=dt,
+                                        device=dev, coefficient=c),
+                    LaplaceMassOperator(mesh, 2, 3, 1.0, 0.0, dtype=dt,
+                                        device=dev))
+               for dt in (torch.float32, torch.float64)}
+        fast = PreconditionVanka(*ops[torch.float32], A, B, n_steps=4)
+        t0 = time.time()
+        dense = PreconditionVanka(*ops[torch.float64], A, B, mode="dense")
+        build = time.time() - t0
+        K = ops[torch.float32][0]
+        src = torch.randn((A.shape[0],) + tuple(K.dof_shape), generator=gen,
+                          device=dev) * K.mask
+        for w in wrappers.values():
+            w.launches = 0
+        got = fast.vmult(src)
+        torch.cuda.synchronize()
+        ran = {n: w.launches for n, w in wrappers.items() if w.launches}
+        ref = dense.vmult(src.double())
+        rel = float((got.double() - ref).abs().max() / ref.abs().max())
+        ms = _cuda_ms(lambda: fast.vmult(src), 5)
+        dms = _cuda_ms(lambda: dense.vmult(src.double()), 5)
+        print(f"# dense Vanka check, {label} mode ({fast.mode}, steps "
+              f"{fast.n_steps}, float32) on 4^3 Q2 x dG(1) x 4 steps (Binv "
+              f"{tuple(dense.Binv.shape)} float64, built in {build:.2f} s): "
+              f"rel to max {rel:.3e} (tol 1e-5); kernels {ran}; apply "
+              f"{ms:.4f} ms, dense {dms:.4f} ms ({smi})", flush=True)
+        needed = ({"chain_down", "time_solve", "chain_up"} if label == "grid"
+                  else {"time_solve"})
+        if not (fast.mode == label and rel <= 1e-5 and needed <= set(ran)):
+            raise AssertionError(f"dense Vanka check {label}: the card's "
+                                 "Vanka differs from the dense inverse")
+    for name, w in wrappers.items():
+        w.launches = saved[name]
+
+
+def tvmult_checks(wrappers, dev, gen, smi) -> dict:
+    """Phase 20(c): SystemMatrix.Tvmult on the card, FP64, at phase 4's
+    heat outer-operator shape (Q4 x dG(2), 16^3, 32 steps: 96 blocks x
+    65^3, route "kron", K2) and at phase 5b's (Q3 x dG(2) with the
+    coefficient field, 16^3, 8 steps: 24 blocks, route "quad", K5):
+    against a plain evaluation of the transposed apply (the kernel's plain
+    version, kron_pair_reference or quad_middle_reference, on the input
+    premixed by the transposed tables) and against vmult of a
+    SystemMatrix on the transposed tables (relative 1e-12 of the max
+    entry), and the adjoint identity <A x, y> = <x, A^T
+    y> within 1e-12 of |<A x, y>|.  Returns the launches of the Tvmult
+    applies (the path's)."""
+    import torch
+    from stfem_tpu_torch.mesh.grid import StructuredMesh
+    from stfem_tpu_torch.ops.kron_pair import kron_pair_reference
+    from stfem_tpu_torch.ops.quad_middle import quad_middle_reference
+    from stfem_tpu_torch.ops.spatial import (LaplaceMassOperator,
+                                             cell_gather, cell_scatter)
+    from stfem_tpu_torch.problems.coefficient import Coefficient
+    from stfem_tpu_torch.system import SystemMatrix
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+
+    f64 = torch.float64
+    mix = lambda table, v: torch.einsum("ji,i...->j...", table, v)
+
+    def plain_tvmult(S, A, B, y):
+        """(A^T (x) K + B^T (x) M) y through the kernel's plain version."""
+        K, k = S.K, S.K.degree
+        AT, BT = (torch.as_tensor(np.ascontiguousarray(np.asarray(t).T),
+                                  dtype=f64, device=dev) for t in (A, B))
+        ym = y * K.mask
+        if S.route == "kron":
+            Ky, My = kron_pair_reference(ym, S._kron.Md, S._kron.Ad, k)
+            return (mix(AT, Ky) + mix(BT, My)) * K.mask
+        u = cell_gather(ym, K.cells, k).reshape(
+            y.shape[0], K.mesh.n_cells, (k + 1) ** 3)
+        q = quad_middle_reference(mix(BT, u), mix(AT, u), S._phig, S._w,
+                                  K.n_q ** 3)
+        q = q.reshape((y.shape[0],) + tuple(K.cells) + (k + 1,) * 3)
+        return cell_scatter(q, K.cells, k) * K.mask
+
+    mesh = StructuredMesh([16, 16, 16], [0.0] * 3, [1.0] * 3)
+    coef = Coefficient([4, 4, 4], [0.0] * 3, [1.0] * 3, 0.5)
+    counts = dict.fromkeys(wrappers, 0)
+    for route, k, steps, c, kernel in (("kron", 4, 32, None, "kron_pair"),
+                                       ("quad", 3, 8, coef, "quad_middle")):
+        A, B = get_fe_time_weights(TimeStepType.DG, 2, 1.0 / 32, steps)[:2]
+        K = LaplaceMassOperator(mesh, k, k + 1, 0.0, 1.0, dtype=f64,
+                                device=dev, coefficient=c)
+        M = LaplaceMassOperator(mesh, k, k + 1, 1.0, 0.0, dtype=f64,
+                                device=dev)
+        S, ST = SystemMatrix(K, M, A, B), SystemMatrix(K, M, A.T, B.T)
+        shape = (A.shape[0],) + tuple(K.dof_shape)
+        x = torch.randn(shape, generator=gen, device=dev, dtype=f64)
+        y = torch.randn(shape, generator=gen, device=dev, dtype=f64)
+        saved = {name: w.launches for name, w in wrappers.items()}
+        for w in wrappers.values():
+            w.launches = 0
+        got = S.Tvmult(y)
+        torch.cuda.synchronize()
+        for name, w in wrappers.items():
+            counts[name] += w.launches
+        ran = {n: w.launches for n, w in wrappers.items() if w.launches}
+        for name, w in wrappers.items():
+            w.launches = saved[name]
+        plain = plain_tvmult(S, A, B, y)
+        rel_plain = float((got - plain).abs().max() / plain.abs().max())
+        del plain
+        ref = ST.vmult(y)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        ax_y = float((S.vmult(x) * y).sum())
+        x_aty = float((x * got).sum())
+        adj = abs(ax_y - x_aty) / abs(ax_y)
+        ms = _cuda_ms(lambda: S.Tvmult(y), 3)
+        vms = _cuda_ms(lambda: S.vmult(y), 3)
+        for name, w in wrappers.items():
+            w.launches = saved[name]
+        print(f"# Tvmult route {S.route} Q{k} x dG(2) {shape[0]} blocks x "
+              f"{shape[1:]} FP64{' (coefficient)' if c else ''}: vs the "
+              f"plain evaluation rel to max {rel_plain:.3e}, vs vmult of "
+              f"the transposed tables {rel:.3e} (tol 1e-12); "
+              f"<Ax,y> {ax_y:.12e} <x,A^T y> {x_aty:.12e} rel {adj:.3e} "
+              f"(tol 1e-12); kernels {ran}; Tvmult {ms:.3f} ms, vmult "
+              f"{vms:.3f} ms ({smi})", flush=True)
+        if not (S.route == route and rel_plain <= 1e-12 and rel <= 1e-12
+                and adj <= 1e-12
+                and ran.get(kernel, 0) > 0):
+            raise AssertionError(f"Tvmult route {route}: wrong, or {kernel} "
+                                 "never ran")
+        del S, ST, K, M, x, y, got, ref
+        torch.cuda.empty_cache()
+    return counts
+
+
+def last_surface_phase(wrappers, dev, gen, smi) -> dict:
+    """Phase 20: (a) the time-only multigrid, (b) the card's Vanka against
+    the dense one, (c) Tvmult on K2 and K5.  Returns the launches of (a)
+    and (c)."""
+    t_phase = time.time()
+    counts = time_only_phase(wrappers, dev, gen, smi)
+    phase_wall(t_phase, "20(a)")
+    dense_vanka_checks(wrappers, dev, gen, smi)
+    phase_wall(t_phase, "20(b)")
+    for name, c in tvmult_checks(wrappers, dev, gen, smi).items():
+        counts[name] += c
+    phase_wall(t_phase, "20")
     return counts
 
 
@@ -3027,6 +3392,13 @@ def main() -> int:
     for name, c in by_path["sharded"].items():
         launches[name] += c
     phase_done("sharded")
+
+    # 20. the last surface: time-only multigrid, the card's Vanka against
+    #     the dense one, Tvmult on K2 and K5
+    by_path["last surface"] = last_surface_phase(wrappers, dev, gen, smi)
+    for name, c in by_path["last surface"].items():
+        launches[name] += c
+    phase_done("last surface")
 
     sources = {"time_solve": ("stfem_tpu_torch/csrc/time_solve.cu",
                               "stfem_tpu/ops/pallas_timesolve.py:82"),

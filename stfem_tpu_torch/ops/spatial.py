@@ -266,6 +266,10 @@ class LaplaceMassOperator:
                 acc = contrib if acc is None else acc + contrib
         return cell_scatter(acc, self.cells, k) * self.mask
 
+    def vmult(self, x: torch.Tensor, mask_input: bool = True):
+        """apply under the reference's name."""
+        return self.apply(x, mask_input)
+
     def element_matrices(self, masked: bool = True) -> torch.Tensor:
         """Exact per-cell element matrices E[C, A, A] with Dirichlet rows
         and columns eliminated (zeroed) unless masked is False."""
@@ -296,3 +300,13 @@ class LaplaceMassOperator:
             return E
         mloc = cell_gather(self.mask, self.cells, k).reshape(C, -1)
         return E * mloc[:, :, None] * mloc[:, None, :]
+
+    def diagonal(self) -> torch.Tensor:
+        """The assembled matrix's diagonal on the dof grid: each element
+        matrix's diagonal, overlap-added; constrained dofs get 1
+        (reference include/operators.h:1092-1110)."""
+        k, dim = self.degree, self.dim
+        ediag = self.element_matrices().diagonal(dim1=1, dim2=2)
+        d = cell_scatter(ediag.reshape(tuple(self.cells) + (k + 1,) * dim),
+                         self.cells, k)
+        return d * self.mask + (1.0 - self.mask)

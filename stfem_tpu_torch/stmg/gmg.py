@@ -475,14 +475,19 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                space_time_level_first: bool = False,
                use_pmg: bool = True, fe_degree_min: int | None = None,
                n_timesteps_at_once_min: int | None = None,
+               space_degree_min: int = 1,
                poly_coarsening=PolynomialCoarseningSequenceType.bisect,
-               laplace_coefficient=None,
+               laplace_coefficient=None, time_only: bool = False,
                estimate_cache: EstimateCache | None = None) -> GMG:
     """Assemble the STMG hierarchy for the heat or wave cycle with
     stfem_tpu's ladder conventions (stfem_tpu/stmg/gmg.py::build_stmg):
-    the space p-sequence bisects space_degree down to 1, the time
-    k-sequence fe_degree down to fe_degree_min, and get_mg_sequence orders
-    the h, p, k and tau levels by the coarsening arguments.  The defaults
+    the space p-sequence bisects space_degree down to space_degree_min,
+    the time k-sequence fe_degree down to fe_degree_min, and
+    get_mg_sequence orders the h, p, k and tau levels by the coarsening
+    arguments.  time_only keeps every level on the fine mesh (no h level;
+    the reference's transfer_01 ladder): the coarsest level is the fine
+    mesh at the coarsest steps and time degree, and a "Smoother" coarse
+    solve applies its Vanka.  The defaults
     give the benches' ladder (space_and_time, p-multigrid, one tau
     level).  laplace_coefficient multiplies every level's stiffness
     operator; such levels take the GridSumFac route and the cell-local
@@ -505,8 +510,10 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
     if n_timesteps_at_once_min is None:
         n_timesteps_at_once_min = max(n_timesteps_at_once // 2, 1)
 
-    n_sp_lvl = mesh_fine.refinement + 1
-    if mesh_fine.distort != 0.0:
+    n_sp_lvl = 1 if time_only else mesh_fine.refinement + 1
+    if time_only:
+        meshes = [mesh_fine]
+    elif mesh_fine.distort != 0.0:
         # the coarse meshes inherit the fine mesh's distorted vertices,
         # strided (stfem_tpu/stmg/gmg.py:441-445)
         meshes = [mesh_fine]
@@ -518,7 +525,8 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                   for r in range(n_sp_lvl)]
     poly_time = get_poly_mg_sequence(fe_degree, fe_degree_min,
                                      poly_coarsening)
-    poly_space = get_poly_mg_sequence(space_degree, 1, poly_coarsening)
+    poly_space = get_poly_mg_sequence(space_degree, space_degree_min,
+                                      poly_coarsening)
     mg_type_level = get_mg_sequence(
         n_sp_lvl, poly_time, poly_space, n_timesteps_at_once,
         n_timesteps_at_once_min, MGType.tau, coarsening_type,

@@ -29,8 +29,18 @@ with V^T M_loc V = I, V^T K_loc V = diag(lam).  The apply is gather ->
 valence scaling -> V^T -> the per-position time solve on the flat N = C A
 axis (kernel K1 for multi-step slabs, as in grid mode) -> V -> scatter.
 The factors are built in float64 on the host and stored in the level
-dtype.  The dense reference-style patch inverse (mode "dense") is not
-ported.
+dtype.
+
+Mode "dense" is the reference's own construction (stfem_tpu/stmg/
+vanka.py mode "dense"; include/stmg.h:619-907): each cell's B_c, block
+major, row-scaled by the valence, with a unit diagonal on fully
+decoupled rows, assembled in float64 on the host, inverted by one
+batched torch.linalg.inv on the level's device and stored as Binv (C,
+T A, T A); the apply is gather -> Binv_c r_c -> scatter.  It shares no
+factorisation with the two modes above, so it is the test surface they
+are held against; it is plain torch (no kernel), never chosen by
+build_stmg, and refuses a level whose Binv would pass DENSE_MAX_BYTES
+(C (T A)^2 entries: 36 MB a cell for a 3D Q4 dG(2) patch).
 
 On a level split over ranks (stmg/gmg.py::distribute_gmg) a rank's grid
 Vanka is the global one's slice (PreconditionVanka.shard): its cells'
@@ -52,11 +62,15 @@ import torch
 from ..ops.grid_chain import chain_down, chain_up, check_cell_blocks
 from ..ops.gridsumfac import promote
 from ..ops.kronfac import assemble_1d_dense, axis_mesh
-from ..ops.spatial import LaplaceMassOperator, cell_gather, overlap_add
+from ..ops.spatial import (LaplaceMassOperator, cell_gather, cell_scatter,
+                           overlap_add)
 from ..ops.time_solve import time_solve
 from ..utils.assembly import (band_indices, cell_dof_indices, dof_valence,
                               overlap_sources)
 from .stokes_level import _band_flat
+
+# the largest dense-mode Binv, in bytes
+DENSE_MAX_BYTES = 2 ** 30
 
 
 def separable(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator) -> bool:
@@ -75,19 +89,26 @@ def separable(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator) -> bool:
             and np.array_equal(M_op.mask_np, default))
 
 
+def patch_matrices(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator):
+    """Each cell's patch of the assembled matrices, (Kp, Mp) (C, A, A)
+    float64 on the host: band assembly, then patch extraction, with a unit
+    diagonal on constrained dofs."""
+    twins = [LaplaceMassOperator(op.mesh, op.degree, op.n_q,
+                                 op.mass_scaling, op.laplace_scaling,
+                                 dtype=torch.float64, device="cpu",
+                                 mask=op.mask_np, coefficient=op.coefficient)
+             for op in (K_op, M_op)]
+    fidx = torch.as_tensor(band_indices(K_op.cells, K_op.degree))
+    return tuple(_band_flat(op)[fidx] for op in twins)
+
+
 def cell_eigenbasis(K_op: LaplaceMassOperator, M_op: LaplaceMassOperator):
     """Per-cell generalized eigenpairs of the assembled patch matrices
     (K_loc, M_loc), float64 on the host: (lam [C, A], V [C, A, A]) with
     V^T M_loc V = I and V^T K_loc V = diag(lam) (stfem_tpu's _eigenbasis:
     Cholesky whitening, then a batched symmetric eigh)."""
     f64 = torch.float64
-    twins = [LaplaceMassOperator(op.mesh, op.degree, op.n_q,
-                                 op.mass_scaling, op.laplace_scaling,
-                                 dtype=f64, device="cpu", mask=op.mask_np,
-                                 coefficient=op.coefficient)
-             for op in (K_op, M_op)]
-    fidx = torch.as_tensor(band_indices(K_op.cells, K_op.degree))
-    Kp, Mp = (_band_flat(op)[fidx] for op in twins)          # (C, A, A)
+    Kp, Mp = patch_matrices(K_op, M_op)                      # (C, A, A)
     L = torch.linalg.cholesky(Mp)
     eye = torch.eye(Mp.shape[-1], dtype=f64).expand_as(Mp)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
@@ -147,10 +168,26 @@ def separable_eigenbasis(K_op: LaplaceMassOperator,
     return lam.reshape(mesh.n_cells, (k + 1) ** dim), v_axes
 
 
+def _batched_inverse(B: torch.Tensor, device) -> torch.Tensor:
+    """torch.linalg.inv of the batch B on `device`; on the CPU under one
+    thread (MKL's threaded batched inverse stalls on matrices of ~160 rows
+    and more in torch 2.13's CPU build)."""
+    device = torch.device(device)
+    if device.type != "cpu":
+        return torch.linalg.inv(B.to(device))
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return torch.linalg.inv(B)
+    finally:
+        torch.set_num_threads(n_threads)
+
+
 class PreconditionVanka:
     """Additive-Schwarz cell-patch preconditioner over the space-time slab,
     fast-diagonalisation apply: "grid" mode for separable levels, "cell"
-    mode (per-cell dense eigenbasis) otherwise (self.mode).
+    mode (per-cell dense eigenbasis) otherwise (self.mode); or, asked for
+    by name, the dense patch inverse (mode "dense", module docstring).
 
     storage_dtype (e.g. torch.bfloat16) stores the down/up matrices at
     reduced precision; the per-step time-solve factors stay float32 for
@@ -162,9 +199,12 @@ class PreconditionVanka:
 
     def __init__(self, K_op: LaplaceMassOperator, M_op: LaplaceMassOperator,
                  Alpha, Beta, dtype=None, storage_dtype=None,
-                 n_steps: int = 1, eigenbasis=None):
+                 n_steps: int = 1, eigenbasis=None, mode: str | None = None):
         """eigenbasis: cell_eigenbasis(K_op, M_op), when the caller holds
-        it already (levels that share a mesh share it)."""
+        it already (levels that share a mesh share it).  mode: None for
+        "grid" on separable levels and "cell" otherwise; "dense" on a
+        level whose Binv (stored in storage_dtype, else dtype) takes at
+        most DENSE_MAX_BYTES (ValueError otherwise)."""
         self.K_op = K_op
         self.cells = K_op.cells
         self.k = K_op.degree
@@ -175,8 +215,18 @@ class PreconditionVanka:
         self.n_blocks = Alpha.shape[0]
         cells, k, dim = self.cells, self.k, self.dim
 
-        # detect the block-bidiagonal rank-1 multi-step structure
+        if mode not in (None, "dense"):
+            raise ValueError(f"PreconditionVanka: unknown mode {mode!r}")
+        if mode is None:
+            mode = "grid" if separable(K_op, M_op) else "cell"
+        self.mode = mode
+        self._idx = self._src = None    # the cell mode's index maps
+        # detect the block-bidiagonal rank-1 multi-step structure (the
+        # dense inverse takes the slab as a whole)
         self.n_steps = 1
+        if mode == "dense":
+            self._build_dense(M_op, Alpha, Beta, storage_dtype)
+            return
         if n_steps > 1 and self.n_blocks % n_steps == 0:
             nt = self.n_blocks // n_steps
             a_nt, b_nt = Alpha[:nt, :nt], Beta[:nt, :nt]
@@ -193,8 +243,6 @@ class PreconditionVanka:
             if np.array_equal(A_rec, Alpha) and np.array_equal(B_rec, Beta):
                 self.n_steps = n_steps
 
-        self.mode = "grid" if separable(K_op, M_op) else "cell"
-        self._idx = self._src = None    # the cell mode's index maps
         if self.mode == "cell":
             self._build_cell(eigenbasis or cell_eigenbasis(K_op, M_op),
                              Alpha, Beta, storage_dtype)
@@ -248,12 +296,13 @@ class PreconditionVanka:
         (cell_ranges, one pair per axis): a grid-mode copy whose matrices
         and time factors are the global ones' slices (module docstring);
         its vmult leaves partial sums on the slab's end planes.  Raises
-        ValueError in cell mode, whose valence and masks are the level's
-        own."""
+        ValueError in cell and dense mode, whose valence and masks are the
+        level's own."""
         if self.mode != "grid":
             raise ValueError("a sharded level needs the grid-mode Vanka; "
-                             "cell mode (a coefficient, cell mask or "
-                             "distorted geometry) is not split")
+                             f"{self.mode} mode (a coefficient, cell mask, "
+                             "distorted geometry or the dense inverse) is "
+                             "not split")
         k, dim = self.k, self.dim
         out = copy.copy(self)
         out.cells = tuple(hi - lo for lo, hi in cell_ranges)
@@ -327,6 +376,39 @@ class PreconditionVanka:
             self.TTg = TT.permute(1, 2, 0).to(device=dev, dtype=fdt
                                               ).contiguous()
 
+    def _build_dense(self, M_op, Alpha, Beta, storage_dtype):
+        """Binv (C, T A, T A): the inverse of each cell's valence-scaled
+        B_c = Alpha (x) Kp_c + Beta (x) Mp_c, block-major rows, with a unit
+        diagonal on its zero rows (stfem_tpu/stmg/vanka.py:263-276)."""
+        cells, k, T = self.cells, self.k, self.n_blocks
+        f64 = torch.float64
+        sdt = storage_dtype if storage_dtype is not None else self.dtype
+        C, A = int(np.prod(cells)), (k + 1) ** self.dim
+        n_bytes = C * (T * A) ** 2 * torch.empty((), dtype=sdt).element_size()
+        if n_bytes > DENSE_MAX_BYTES:
+            raise ValueError(
+                f"PreconditionVanka dense: Binv of {C} cells x ({T} x {A})^2 "
+                f"takes {n_bytes} bytes, over the limit of {DENSE_MAX_BYTES}")
+        Kp, Mp = patch_matrices(self.K_op, M_op)
+        as_64 = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
+        B = (torch.einsum("ij,cab->ciajb", as_64(Alpha), Kp)
+             + torch.einsum("ij,cab->ciajb", as_64(Beta), Mp)
+             ).reshape(C, T * A, T * A)
+        val = torch.as_tensor(dof_valence(cells, k), dtype=f64)
+        vloc = cell_gather(val, cells, k).reshape(C, A)
+        B = B * vloc.repeat(1, T)[:, :, None]
+        B = B + torch.diag_embed((B.abs().amax(2) == 0.0).to(f64))
+        self.Binv = _batched_inverse(B, self.device).to(sdt).contiguous()
+
+    def _vmult_dense(self, src: torch.Tensor) -> torch.Tensor:
+        nb, (C, TA, _) = src.shape[0], self.Binv.shape
+        r = cell_gather(src.to(self.dtype), self.cells, self.k)
+        r = r.reshape(nb, C, TA // nb).transpose(0, 1).reshape(C, TA, 1)
+        Binv, r = promote(self.Binv, r)
+        y = torch.bmm(Binv, r).reshape(C, nb, TA // nb).transpose(0, 1)
+        y = y.reshape((nb,) + tuple(self.cells) + (self.k + 1,) * self.dim)
+        return cell_scatter(y.to(self.dtype), self.cells, self.k)
+
     def _vmult_cell(self, src: torch.Tensor) -> torch.Tensor:
         nb = src.shape[0]
         C, A = self.V.shape[0], self.V.shape[1]
@@ -354,6 +436,8 @@ class PreconditionVanka:
         """src: [n_blocks, *dofshape] residual -> additive patch updates."""
         if self.mode == "cell":
             return self._vmult_cell(src)
+        if self.mode == "dense":
+            return self._vmult_dense(src)
         nb = src.shape[0]
         w = chain_down(src.to(self.dtype), self.Wdn, cells=self.cells,
                        k=self.k)

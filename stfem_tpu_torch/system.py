@@ -27,7 +27,8 @@ chosen in stfem_tpu's order (the order it ran on its accelerator):
 squared, so stepped and masked meshes take them as they are.  A route may
 also be asked for by name (the tests; chip_smoke.py's independent FP64
 residual check); "kron", "quad" and "grid" raise on full inverse
-Jacobians.
+Jacobians, "cell" on diagonal ones.  Tvmult applies the transposed
+tables on the same route (and kernels).
 """
 from __future__ import annotations
 
@@ -68,6 +69,10 @@ class SystemMatrix:
                                      device=self.device)
         self.Beta = torch.as_tensor(B_np, dtype=self.dtype,
                                     device=self.device)
+        # Tvmult's tables, contiguous, so that its premix feeds K2 and K5
+        # as vmult's does
+        self.AlphaT = self.Alpha.T.contiguous()
+        self.BetaT = self.Beta.T.contiguous()
         self.alpha_is_zero = bool(np.all(A_np == 0.0))
         self.beta_is_zero = bool(np.all(B_np == 0.0))
         self.n_blocks = A_np.shape[0]
@@ -91,9 +96,10 @@ class SystemMatrix:
                      else "quad" if self.dtype == torch.float64 else "grid")
         if route not in ROUTES:
             raise ValueError(f"SystemMatrix: unknown route {route!r}")
-        if route != "cell" and K_op.jinv is not None:
+        if (route == "cell") != (K_op.jinv is not None):
             raise ValueError(f"SystemMatrix: route {route!r} takes "
-                             "diagonal Jacobians only")
+                             + ("full inverse Jacobians" if route == "cell"
+                                else "diagonal Jacobians only"))
         self.route = route
         self._kron = self._grid = None
         if route == "kron":
@@ -186,28 +192,37 @@ class SystemMatrix:
         table, x = promote(table, x)
         return torch.einsum("ji,i...->j...", table, x)
 
-    def _apply(self, x: torch.Tensor, mask_input: bool = True):
+    @property
+    def dof_shape(self):
+        return self.K.dof_shape
+
+    def _apply(self, x: torch.Tensor, mask_input: bool = True,
+               transpose: bool = False):
+        """The apply under Alpha and Beta, or under their transposes."""
+        tables = ((self.AlphaT, self.BetaT) if transpose
+                  else (self.Alpha, self.Beta))
         if self.precision is not None:
             with full_precision():
-                return self._apply_impl(x, mask_input)
-        return self._apply_impl(x, mask_input)
+                return self._apply_impl(x, tables, mask_input)
+        return self._apply_impl(x, tables, mask_input)
 
     def _masked(self, x, mask_input: bool):
         """x with its constrained dofs zeroed, or as it is (the strong
         Dirichlet lift reads them, stfem_tpu system.py:239-352)."""
         return x * self.K.mask if mask_input else x
 
-    def _apply_impl(self, x, mask_input=True):
+    def _apply_impl(self, x, tables, mask_input=True):
+        Alpha, Beta = tables
         if self.route == "grid":
             y = self._grid.apply(self._masked(x, mask_input),
-                                 lambda v: self._mix(self.Alpha, v),
-                                 lambda v: self._mix(self.Beta, v),
+                                 lambda v: self._mix(Alpha, v),
+                                 lambda v: self._mix(Beta, v),
                                  self.alpha_is_zero, self.beta_is_zero)
-            return self._zeros(x) if y is None else y * self.K.mask
+            return self._zeros(x, Alpha) if y is None else y * self.K.mask
         if self.route == "quad":
-            return self._apply_quad(x, mask_input)
+            return self._apply_quad(x, tables, mask_input)
         if self.route == "cell":
-            return self._apply_cell(x, mask_input)
+            return self._apply_cell(x, tables, mask_input)
         K, M = self.K, self.M
         xin = self._masked(x, mask_input)
         cKK, cKM = K.laplace_scaling, K.mass_scaling
@@ -230,21 +245,21 @@ class SystemMatrix:
         if not az:
             t = comb(cKK, cKM)
             if t is not None:
-                y = self._mix(self.Alpha, t)
+                y = self._mix(Alpha, t)
         if not bz:
             t = comb(cMK, cMM)
             if t is not None:
-                tb = self._mix(self.Beta, t)
+                tb = self._mix(Beta, t)
                 y = tb if y is None else y + tb
         if y is None:
-            return self._zeros(x)
+            return self._zeros(x, Alpha)
         return y * K.mask
 
-    def _zeros(self, x):
-        return torch.zeros((self.n_blocks,) + x.shape[1:], dtype=self.dtype,
+    def _zeros(self, x, table):
+        return torch.zeros((table.shape[0],) + x.shape[1:], dtype=self.dtype,
                            device=self.device)
 
-    def _apply_cell(self, x, mask_input=True):
+    def _apply_cell(self, x, tables, mask_input=True):
         """Route "cell": stiffness K_op (laplace 1, mass 0) and mass M_op
         (1, 0) with their weights (jxw times the coefficient); x: [n_src,
         ..., *dofshape]."""
@@ -255,22 +270,23 @@ class SystemMatrix:
         u = self._masked(x, mask_input).reshape(lead + (-1,)).index_select(
             -1, self._idx).reshape(lead + (C, A))
         acc = None
+        Alpha, Beta = tables
         if not self.beta_is_zero:
-            ub, phi = promote(self._mix(self.Beta, u), self._phi)
+            ub, phi = promote(self._mix(Beta, u), self._phi)
             acc = ((ub @ phi) * self._wM) @ self._phiT
         if not self.alpha_is_zero:
-            ua, grad = promote(self._mix(self.Alpha, u), self._grad)
+            ua, grad = promote(self._mix(Alpha, u), self._grad)
             g = ua @ grad                                  # [..., C, dim Q]
             g = g.reshape(g.shape[:-1] + (dim, -1))        # [..., C, f, Q]
             t = (self._G * g.unsqueeze(-3)).sum(-2)        # [..., C, e, Q]
             t = t.reshape(t.shape[:-2] + (-1,)) @ self._gradT
             acc = t if acc is None else acc + t
         if acc is None:
-            return self._zeros(x)
+            return self._zeros(x, Alpha)
         y = overlap_add(acc.reshape(acc.shape[:-2] + (-1,)), self._src, dim)
         return y.reshape(acc.shape[:-2] + tuple(K.dof_shape)) * K.mask
 
-    def _apply_quad(self, x, mask_input=True):
+    def _apply_quad(self, x, tables, mask_input=True):
         """cell_gather -> premix -> K5 -> cell_scatter -> mask."""
         K = self.K
         cells, k, dim = K.cells, K.degree, K.dim
@@ -278,8 +294,8 @@ class SystemMatrix:
             raise ValueError("route quad takes [n_blocks, *dofshape]")
         u = cell_gather(self._masked(x, mask_input), cells, k).reshape(
             x.shape[0], K.mesh.n_cells, (k + 1) ** dim)
-        ub = self._mix(self.Beta, u).contiguous()
-        ua = self._mix(self.Alpha, u).contiguous()
+        ub = self._mix(tables[1], u).contiguous()
+        ua = self._mix(tables[0], u).contiguous()
         y = quad_middle(ub, ua, self._phig, self._w, K.n_q ** dim,
                         self._phigT)
         y = y.reshape((y.shape[0],) + tuple(cells) + (k + 1,) * dim)
@@ -295,6 +311,13 @@ class SystemMatrix:
             return self.vmult_slice(x[0], mask_input)
         return self._apply(x, mask_input)
 
+    def Tvmult(self, x: torch.Tensor):
+        """The block-transposed apply (Alpha^T (x) K + Beta^T (x) M) x: K
+        and M are symmetric, so it is vmult's spatial work under the
+        transposed tables, on the same route and kernels; never the
+        rhs-slice shortcut."""
+        return self._apply(x, transpose=True)
+
     def vmult_slice(self, prev: torch.Tensor, mask_input: bool = True):
         """RHS assembly: dst_j = Alpha[j,0] K prev + Beta[j,0] M prev
         (reference vmult_slice_add, include/operators.h:585-611)."""
@@ -305,3 +328,12 @@ class SystemMatrix:
             out[list(self._slice_nz)] = y
             return out
         return self._apply(prev[None], mask_input)
+
+    def diagonal(self) -> torch.Tensor:
+        """The block diagonal [n_blocks, *dofshape]: diag_j = Alpha[j, j]
+        diag(K) + Beta[j, j] diag(M) (reference
+        include/operators.h:613-640)."""
+        lead = (self.n_blocks,) + (1,) * self.K.dim
+        return (torch.diagonal(self.Alpha).reshape(lead) * self.K.diagonal()
+                + torch.diagonal(self.Beta).reshape(lead)
+                * self.M.diagonal())

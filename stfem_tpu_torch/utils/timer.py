@@ -40,3 +40,6 @@ class TimerOutput:
                          f"{self.counts[name]:6d} |")
         lines.append(lines[0])
         return "\n".join(lines)
+
+    def print_wall_time_statistics(self):
+        print(self.summary())

@@ -378,3 +378,42 @@ def test_quad_middle_kernel_rejects(dev):
                                           dtype=torch.float64),
                     torch.zeros((8, 512), device=dev, dtype=torch.float64),
                     128)
+
+
+@pytest.mark.parametrize("route,k,coefficient", [("kron", 4, False),
+                                                 ("quad", 3, True)])
+def test_tvmult_on_card(dev, route, k, coefficient):
+    """SystemMatrix.Tvmult on the card, route "kron" through K2 and route
+    "quad" through K5, against the same operator's Tvmult on the CPU (the
+    plain versions) and against vmult of the transposed tables on the
+    card, FP64, within 1e-12."""
+    import numpy as np
+
+    from stfem_tpu_torch.ops.quad_middle import quad_middle as k5
+    from stfem_tpu_torch.problems.coefficient import Coefficient
+    from stfem_tpu_torch.system import SystemMatrix
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+
+    A, B, _, _ = get_fe_time_weights(TimeStepType.DG, 2, 1 / 32, 2)
+    mesh = StructuredMesh([3, 4, 3], [0.0] * 3, [1.0] * 3)
+    coef = Coefficient([3, 3, 3], [0.0] * 3, [1.0] * 3, 0.5) \
+        if coefficient else None
+    y = torch.as_tensor(np.random.default_rng(k).standard_normal(
+        (A.shape[0],) + mesh.dof_shape(k)))
+    kernel = kron_pair if route == "kron" else k5
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        ops = [LaplaceMassOperator(mesh, k, k + 1, ms, ls, device=d,
+                                   coefficient=c)
+               for ms, ls, c in ((0.0, 1.0, coef), (1.0, 0.0, None))]
+        S = SystemMatrix(*ops, A, B)
+        assert S.route == route
+        before = kernel.launches
+        out[d.type] = (S.Tvmult(y.to(d)).cpu(),
+                       SystemMatrix(*ops, A.T, B.T).vmult(y.to(d)).cpu())
+        if d == dev:
+            torch.cuda.synchronize()
+            assert kernel.launches > before
+    got, ref = out["cuda"], out["cpu"]
+    assert _rel(got[0], ref[0]) <= 1e-12 and _rel(got[0], got[1]) <= 1e-12
