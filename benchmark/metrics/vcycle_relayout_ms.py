@@ -1,0 +1,11 @@
+"""Device time of the copies (aten::copy_, contiguous, clone, not under
+a dtype cast such as aten::to) launched inside the V-cycle span, per
+V-cycle, over the traced stretch."""
+
+
+def read(summary):
+    t = summary["trace"]
+    st = t and t["spans"].get("vcycle")
+    if not st or not st["count"] or st["device_s"] <= 0:
+        return None
+    return 1e3 * t["relayout_s"]["vcycle"] / st["count"]
