@@ -12,6 +12,10 @@ richardson_solve and fgmres take an optional norm (and fgmres a dot):
 the sharded solve passes the interface-weighted, all-reduced ones of
 parallel/sharding.py::RankLayout.krylov_options.  Without them they use
 the local 2-norm and products, as before.
+
+Each host read of a norm or of products (the stop tests, the Givens
+column, the coarse solve's least squares) is the tracer's span
+krylov.norm_read and counts krylov.host_reads (utils/timer.py).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from .utils.precision import full_precision
+from .utils.timer import count, span
 
 
 class SolveResult(NamedTuple):
@@ -34,6 +39,13 @@ def _norm(a) -> float:
     return float(torch.linalg.vector_norm(a.reshape(-1)))
 
 
+def _host_read(fn, *args):
+    """fn(*args), a read of device values on the host, traced."""
+    count("krylov.host_reads")
+    with span("krylov.norm_read"):
+        return fn(*args)
+
+
 def richardson_solve(A: Callable, b: torch.Tensor, x0: torch.Tensor,
                      precondition: Callable, maxiter: int = 100,
                      reltol: float = 1e-8, omega: float = 1.0,
@@ -44,14 +56,14 @@ def richardson_solve(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     norm: a -> float (default the 2-norm)."""
     norm = norm or _norm
     r = b - A(x0)
-    beta = norm(r)
+    beta = _host_read(norm, r)
     tol = max(abstol, reltol * beta)
     x, res, j = x0, beta, 0
     while j < maxiter and res > tol:
         step = precondition(r)
         x = x + (step if omega == 1.0 else omega * step)
         r = b - A(x)
-        res = norm(r)
+        res = _host_read(norm, r)
         j += 1
     return SolveResult(x=x, iterations=j,
                        residual=res / (beta if beta != 0 else 1.0),
@@ -72,20 +84,20 @@ def chebyshev_solve(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     theta = (lambda_max + lambda_min) / 2.0
     delta = max((lambda_max - lambda_min) / 2.0, 1e-30)
     r = b - A(x0)
-    beta = _norm(r)
+    beta = _host_read(_norm, r)
     tol = max(abstol, reltol * beta)
     # e carries the previous increment (deal.II's `update` vector)
     e = precondition(r) * (1.0 / theta)
     x = x0 + e
     r = b - A(x)
-    res, j, rhok = _norm(r), 1, delta / theta
+    res, j, rhok = _host_read(_norm, r), 1, delta / theta
     sigma = 2.0 * theta / delta
     while j < maxiter and res > tol:
         rho_new = 1.0 / (sigma - rhok)
         e = rho_new * rhok * e + (2.0 * rho_new / delta) * precondition(r)
         x = x + e
         r = b - A(x)
-        res, j, rhok = _norm(r), j + 1, rho_new
+        res, j, rhok = _host_read(_norm, r), j + 1, rho_new
     return SolveResult(x=x, iterations=j,
                        residual=res / (beta if beta != 0 else 1.0),
                        converged=res <= tol)
@@ -98,8 +110,8 @@ def _least_squares(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     them; y on H's device.  The one host read of the coarse solve; a
     non-finite value raises."""
     m = H.shape[1]
-    Hb = torch.cat([H.reshape(-1), beta.reshape(1)]).to(
-        torch.float64).cpu().numpy()
+    Hb = _host_read(lambda: torch.cat([H.reshape(-1), beta.reshape(1)]).to(
+        torch.float64).cpu().numpy())
     if not np.all(np.isfinite(Hb)):
         raise FloatingPointError("GMRES coarse solve: non-finite Hessenberg "
                                  "matrix or rhs")
@@ -174,7 +186,7 @@ def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     _dot = dot or torch.matmul
     shape = b.shape
     r0 = b - A(x0)
-    beta = norm(r0)
+    beta = _host_read(norm, r0)
     tol = max(abstol, reltol * beta)
     V, Z = [], []
     H = torch.zeros((maxiter + 1, maxiter), dtype=torch.float64)
@@ -190,19 +202,21 @@ def fgmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         w = A(z).reshape(-1)
         Vm = torch.stack(V).to(w.dtype)
         with full_precision():      # never TF32 in the orthogonalisation
-            w_pre = norm(w) if reorthogonalize == "selective" else 0.0
+            w_pre = (_host_read(norm, w) if reorthogonalize == "selective"
+                     else 0.0)
             h = _dot(Vm, w)
             w = w - Vm.T @ h
             if reorthogonalize == "selective":
-                again = norm(w) < 0.7071 * w_pre
+                again = _host_read(norm, w) < 0.7071 * w_pre
             else:
                 again = bool(reorthogonalize)
             if again:
                 h2 = _dot(Vm, w)
                 w = w - Vm.T @ h2
                 h = h + h2
-        wnorm = norm(w)
-        col = h.to(torch.float64).cpu().tolist() + [wnorm]
+        wnorm = _host_read(norm, w)
+        col = _host_read(lambda: h.to(torch.float64).cpu().tolist()) \
+            + [wnorm]
         for i in range(j):          # apply the earlier rotations
             a, c = col[i], col[i + 1]
             col[i] = cs[i] * a + sn[i] * c
@@ -238,10 +252,10 @@ def estimate_error_propagator_radius(A: Callable, precondition: Callable,
                                      n_iterations: int = 15) -> float:
     """Power-iteration estimate of rho(I - P A), the Richardson
     contraction factor."""
-    v = v0 / _norm(v0)
+    v = v0 / _host_read(_norm, v0)
     lam = 0.0
     for _ in range(n_iterations):
         w = v - precondition(A(v))
-        lam = abs(float(torch.sum(v * w)))
-        v = w / _norm(w)
+        lam = abs(_host_read(lambda: float(torch.sum(v * w))))
+        v = w / _host_read(_norm, w)
     return lam

@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils.timer import count, span
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("time_solve.cu", "kron_pair.cu", "banded_apply.cu",
            "grid_chain.cu", "quad_middle.cu")
@@ -72,11 +74,14 @@ def build(force: bool = False, verbose: bool = False) -> tuple[float, str]:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call): the tracer's span
+    kernels.load, counting kernels.built when nvcc ran."""
     global _LIB
     if _LIB is None:
-        build()
-        _LIB = bind(ctypes.CDLL(str(LIB_PATH)))
+        with span("kernels.load"):
+            if build()[0] > 0.0:
+                count("kernels.built")
+            _LIB = bind(ctypes.CDLL(str(LIB_PATH)))
     return _LIB
 
 

@@ -28,6 +28,7 @@ import torch
 
 from ..system import SystemMatrix
 from ..utils.precision import full_precision
+from ..utils.timer import span
 
 
 class SlabResidual64:
@@ -94,8 +95,9 @@ class SlabResidual64:
         On a rank's slab (the engine and mask of its sub-mesh, fslab its
         local assembly, prev and x consistent) r and rhs hold partial sums
         on the shared planes: accumulate (a RankLayout's) completes both,
-        and norm (the interface-weighted global one) takes their norms."""
-        with full_precision():
+        and norm (the interface-weighted global one) takes their norms.
+        The tracer's span residual64."""
+        with full_precision(), span("residual64"):
             rhs = self.rhs(prev, fslab, prev_v)
             nt, nc = self.nt, self.n_coupling
             S = self.n_blocks // nt

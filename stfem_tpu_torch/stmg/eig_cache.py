@@ -31,6 +31,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..utils.timer import count
 from .smoother import EigInfo
 
 DEFAULT_PATH = (pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -116,20 +117,26 @@ class EstimateCache:
         return info
 
     def _estimate(self, key, compute) -> EigInfo:
+        """The estimate, counted for the tracer as eig_cache.hits (read)
+        or eig_cache.misses (computed)."""
         if key is not None and key in self.preset:
             self.read += 1
+            count("eig_cache.hits")
             lo, hi = self.preset[key]
             return EigInfo(min_eigenvalue=float(lo), max_eigenvalue=float(hi))
         if self.path is None or key is None:
             self.computed += 1
+            count("eig_cache.misses")
             return compute()
         hit = _read(self.path).get(key)
         if hit is not None:
             self.read += 1
+            count("eig_cache.hits")
             return EigInfo(min_eigenvalue=float(hit[0]),
                            max_eigenvalue=float(hit[1]))
         info = compute()
         self.computed += 1
+        count("eig_cache.misses")
         if np.isfinite(info.max_eigenvalue) and info.max_eigenvalue > 0:
             cache = _read(self.path)
             cache[key] = [float(info.min_eigenvalue),

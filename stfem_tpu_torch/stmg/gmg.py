@@ -66,6 +66,7 @@ from ..time.tables import (get_fe_time_weights_sequence,
                            get_fe_time_weights_wave_sequence)
 from ..types import (CoarseningType, MGType, PolynomialCoarseningSequenceType,
                      ProblemType, SupportedSmoothers, TimeStepType)
+from ..utils.timer import count, span, traced
 from .eig_cache import EstimateCache, cache_path, estimate_key
 from .smoother import (ChebyshevSmoother, IdentitySmoother,
                        RelaxationSmoother, chebyshev_parameters,
@@ -178,6 +179,10 @@ class _Level:
     dof_shape: tuple
 
 
+# the V-cycle's stage spans of a level, in _level_v_step's order
+STAGES = ("smooth", "residual", "restrict", "prolongate", "post_smooth")
+
+
 class GMG:
     DIRECT_COARSE_MAX = 16384
 
@@ -220,9 +225,13 @@ class GMG:
         self.coarse = coarse
         self.coarse_maxiter = coarse_maxiter
         self.coarse_null = coarse_null
+        # the tracer's stage span names per level, made once
+        self._stage_spans = [tuple(f"stmg.{s}.L{l}" for s in STAGES)
+                            for l in range(len(levels))]
         self.coarse_Ainv = (self._assemble_direct_coarse(coarse_pinv)
                             if coarse == "Direct" else None)
 
+    @traced("stmg.build.coarse_direct")
     def _assemble_direct_coarse(self, pinv: bool):
         """Dense float32 inverse (or FP64 pseudo-inverse stored in float32)
         of the coarsest slab operator, assembled from all unit columns at
@@ -292,15 +301,26 @@ class GMG:
         return u
 
     def _level_v_step(self, level: int, defect):
+        """One visit of `level`, each stage a span of the tracer; the
+        recursion into level - 1 lies between restrict and prolongate,
+        outside them."""
         if level == 0:
-            return self._coarse_solve(defect)
+            with span("stmg.coarse.L0"):
+                return self._coarse_solve(defect)
+        smooth, residual, restrict, prolongate, post = \
+            self._stage_spans[level]
         lvl = self.levels[level]
-        u = self._apply_smoother(level, defect)
-        r = defect - lvl.matrix.vmult(u)
-        dc = self.transfers[level - 1].restrict(r)
+        with span(smooth):
+            u = self._apply_smoother(level, defect)
+        with span(residual):
+            r = defect - lvl.matrix.vmult(u)
+        with span(restrict):
+            dc = self.transfers[level - 1].restrict(r)
         uc = self._level_v_step(level - 1, dc)
-        u = u + self.transfers[level - 1].prolongate(uc)
-        return self._post_smooth(level, u, defect)
+        with span(prolongate):
+            u = u + self.transfers[level - 1].prolongate(uc)
+        with span(post):
+            return self._post_smooth(level, u, defect)
 
     def _post_smooth(self, level: int, u, defect):
         """The level's post-smoothing steps u += S(d - A u), S with
@@ -321,8 +341,10 @@ class GMG:
     def vmult(self, src):
         """One V-cycle in the level precision; cast at the boundary
         (reference stmg.h:1331-1344)."""
-        y = self._level_v_step(self.max_level, src.to(self.dtype))
-        return y.to(src.dtype)
+        count("stmg.vcycles")
+        with span("stmg.vcycle"):
+            y = self._level_v_step(self.max_level, src.to(self.dtype))
+            return y.to(src.dtype)
 
     __call__ = vmult
 
@@ -465,6 +487,7 @@ def _usable(info):
     return info if ok else None
 
 
+@traced("stmg.build")
 def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                type_: TimeStepType, n_timesteps_at_once: int,
                time_step: float, params: GMGParams | None = None,
@@ -616,7 +639,8 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
             n_iterations=n_it, safety_factor=safety)))
 
     levels, ops_cache = [], {}
-    for l in range(n_levels):
+
+    def build_level(l):
         mesh_l = meshes[mesh_idx[l]]
         deg_l = poly_space[spd_idx[l]]
         if (mesh_idx[l], deg_l) not in ops_cache:
@@ -633,16 +657,23 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
         # a directly solved level 0 never runs its smoother
         if (precond_seq[l] == SupportedSmoothers.Identity
                 or (l == 0 and direct)):
-            continue
-        v = vanka(K, M, Alpha_l, Beta_l, n_at_once[l])
+            return
+        with span(f"stmg.build.vanka.L{l}"):
+            v = vanka(K, M, Alpha_l, Beta_l, n_at_once[l])
         info = None     # also on a degenerate level: every dof constrained
         if ((params.relaxation == 0.0
              or precond_seq[l] == SupportedSmoothers.Chebyshev)
                 and np.sum(K.mask_np) != 0):
-            info = estimate(matrix, v, K, mesh_l, deg_l, Alpha_l, Beta_l,
-                            n_at_once[l], (n_blocks,) + tuple(lvl.dof_shape))
+            with span(f"stmg.build.estimate.L{l}"):
+                info = estimate(matrix, v, K, mesh_l, deg_l, Alpha_l, Beta_l,
+                                n_at_once[l],
+                                (n_blocks,) + tuple(lvl.dof_shape))
         lvl.smoother = _level_smoother(precond_seq[l], matrix, v, info,
                                        params)
+
+    for l in range(n_levels):
+        with span(f"stmg.build.level.L{l}"):
+            build_level(l)
 
     transfers = []
     for l in range(1, n_levels):

@@ -19,6 +19,9 @@ per rank, so its input is weighted by the interface weights first and
 the coarse result accumulated; into a replicated coarse level the
 weighted partial results over the whole coarse grid are summed in one
 all-reduce.
+
+Every restriction and prolongation is the tracer's span transfer.restrict
+or transfer.prolongate (utils/timer.py).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from ..time.transfer import (get_time_projection_matrix,
                              get_time_prolongation_matrix,
                              get_time_restriction_matrix)
 from ..types import MGType, TimeStepType
+from ..utils.timer import span
 
 
 def h_prolongation_global_1d(n_coarse_cells: int, degree: int) -> np.ndarray:
@@ -73,12 +77,14 @@ class SpaceTransfer:
         return x
 
     def prolongate(self, xc):
-        return self._apply_axes(xc * self.coarse_mask, self.P) \
-            * self.fine_mask
+        with span("transfer.prolongate"):
+            return self._apply_axes(xc * self.coarse_mask, self.P) \
+                * self.fine_mask
 
     def restrict(self, xf):
-        return self._apply_axes(xf * self.fine_mask,
-                                [p.T for p in self.P]) * self.coarse_mask
+        with span("transfer.restrict"):
+            return self._apply_axes(xf * self.fine_mask,
+                                    [p.T for p in self.P]) * self.coarse_mask
 
     def shard(self, layout, fine_cells, fine_degree: int, coarse_cells,
               coarse_degree: int, coarse_replicated: bool = False):
@@ -118,11 +124,12 @@ class ShardedSpaceTransfer(SpaceTransfer):
         self.fine_weighted = fine_mask * w
 
     def restrict(self, xf):
-        yc = self._apply_axes(xf * self.fine_weighted,
-                              [p.T for p in self.P]) * self.coarse_mask
-        if self.coarse_replicated:
-            return all_reduce(yc, None)
-        return self.layout.accumulate(yc)
+        with span("transfer.restrict"):
+            yc = self._apply_axes(xf * self.fine_weighted,
+                                  [p.T for p in self.P]) * self.coarse_mask
+            if self.coarse_replicated:
+                return all_reduce(yc, None)
+            return self.layout.accumulate(yc)
 
 
 class TimeTransfer:
@@ -161,7 +168,9 @@ class TimeTransfer:
         return torch.einsum("ij,j...->i...", T, x)
 
     def prolongate(self, xc):
-        return self._mix(self.prol, xc)
+        with span("transfer.prolongate"):
+            return self._mix(self.prol, xc)
 
     def restrict(self, xf):
-        return self._mix(self.restr, xf)
+        with span("transfer.restrict"):
+            return self._mix(self.restr, xf)

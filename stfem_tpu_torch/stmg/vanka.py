@@ -67,6 +67,7 @@ from ..ops.spatial import (LaplaceMassOperator, cell_gather, cell_scatter,
 from ..ops.time_solve import time_solve
 from ..utils.assembly import (band_indices, cell_dof_indices, dof_valence,
                               overlap_sources)
+from ..utils.timer import count, span
 from .stokes_level import _band_flat
 
 # the largest dense-mode Binv, in bytes
@@ -402,12 +403,16 @@ class PreconditionVanka:
 
     def _vmult_dense(self, src: torch.Tensor) -> torch.Tensor:
         nb, (C, TA, _) = src.shape[0], self.Binv.shape
-        r = cell_gather(src.to(self.dtype), self.cells, self.k)
-        r = r.reshape(nb, C, TA // nb).transpose(0, 1).reshape(C, TA, 1)
-        Binv, r = promote(self.Binv, r)
-        y = torch.bmm(Binv, r).reshape(C, nb, TA // nb).transpose(0, 1)
-        y = y.reshape((nb,) + tuple(self.cells) + (self.k + 1,) * self.dim)
-        return cell_scatter(y.to(self.dtype), self.cells, self.k)
+        with span("vanka.down"):
+            r = cell_gather(src.to(self.dtype), self.cells, self.k)
+            r = r.reshape(nb, C, TA // nb).transpose(0, 1).reshape(C, TA, 1)
+        with span("vanka.time"):
+            Binv, r = promote(self.Binv, r)
+            y = torch.bmm(Binv, r).reshape(C, nb, TA // nb).transpose(0, 1)
+        with span("vanka.up"):
+            y = y.reshape((nb,) + tuple(self.cells)
+                          + (self.k + 1,) * self.dim)
+            return cell_scatter(y.to(self.dtype), self.cells, self.k)
 
     def _vmult_cell(self, src: torch.Tensor) -> torch.Tensor:
         nb = src.shape[0]
@@ -416,40 +421,54 @@ class PreconditionVanka:
             ix = lambda a: torch.as_tensor(a.reshape(-1), device=self.device)
             self._idx = ix(cell_dof_indices(self.cells, self.k))
             self._src = ix(overlap_sources(self.cells, self.k))
-        r = src.to(self.dtype).reshape(nb, -1).index_select(
-            -1, self._idx).reshape(nb, C, A)
-        V, r = promote(self.V, r * self.dinv)
-        w = torch.einsum("caq,tca->tcq", V, r).reshape(nb, C * A)
-        if self.n_steps > 1:
-            S = self.n_steps
-            w = time_solve(w.contiguous(), self.GinvT, self.cvecT, S,
-                           nb // S, w.dtype)
-        else:
-            TTg, w = promote(self.TTg, w)
-            w = torch.einsum("tsn,sn->tn", TTg, w)
-        V, w = promote(self.V, w.reshape(nb, C, A))
-        y = torch.einsum("caq,tcq->tca", V, w).to(self.dtype)
-        return overlap_add(y.reshape(nb, C * A), self._src,
-                           self.dim).reshape(src.shape)
+        with span("vanka.down"):
+            r = src.to(self.dtype).reshape(nb, -1).index_select(
+                -1, self._idx).reshape(nb, C, A)
+            V, r = promote(self.V, r * self.dinv)
+            w = torch.einsum("caq,tca->tcq", V, r).reshape(nb, C * A)
+        with span("vanka.time"):
+            if self.n_steps > 1:
+                S = self.n_steps
+                w = time_solve(w.contiguous(), self.GinvT, self.cvecT, S,
+                               nb // S, w.dtype)
+            else:
+                TTg, w = promote(self.TTg, w)
+                w = torch.einsum("tsn,sn->tn", TTg, w)
+        with span("vanka.up"):
+            V, w = promote(self.V, w.reshape(nb, C, A))
+            y = torch.einsum("caq,tcq->tca", V, w).to(self.dtype)
+            return overlap_add(y.reshape(nb, C * A), self._src,
+                               self.dim).reshape(src.shape)
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
-        """src: [n_blocks, *dofshape] residual -> additive patch updates."""
-        if self.mode == "cell":
-            return self._vmult_cell(src)
-        if self.mode == "dense":
-            return self._vmult_dense(src)
+        """src: [n_blocks, *dofshape] residual -> additive patch updates.
+        The tracer's span vanka.vmult, counted as vanka.applies, with the
+        mode's parts vanka.down, vanka.time and vanka.up inside."""
+        count("vanka.applies")
+        with span("vanka.vmult"):
+            if self.mode == "cell":
+                return self._vmult_cell(src)
+            if self.mode == "dense":
+                return self._vmult_dense(src)
+            return self._vmult_grid(src)
+
+    def _vmult_grid(self, src: torch.Tensor) -> torch.Tensor:
         nb = src.shape[0]
-        w = chain_down(src.to(self.dtype), self.Wdn, cells=self.cells,
-                       k=self.k)
+        with span("vanka.down"):
+            w = chain_down(src.to(self.dtype), self.Wdn, cells=self.cells,
+                           k=self.k)
         gshape = w.shape[1:]
         N = int(np.prod(gshape))
         wf = w.reshape(nb, N)
-        if self.n_steps > 1:
-            S = self.n_steps
-            w = time_solve(wf, self.GinvT, self.cvecT, S, nb // S, wf.dtype)
-        else:
-            TTg, wf = promote(self.TTg, wf)
-            w = torch.einsum("tsn,sn->tn", TTg, wf)
-        # back to the working dtype before the up chain
-        w = w.reshape((nb,) + tuple(gshape)).to(self.dtype)
-        return chain_up(w, self.Wup, cells=self.cells, k=self.k)
+        with span("vanka.time"):
+            if self.n_steps > 1:
+                S = self.n_steps
+                w = time_solve(wf, self.GinvT, self.cvecT, S, nb // S,
+                               wf.dtype)
+            else:
+                TTg, wf = promote(self.TTg, wf)
+                w = torch.einsum("tsn,sn->tn", TTg, wf)
+        with span("vanka.up"):
+            # back to the working dtype before the up chain
+            w = w.reshape((nb,) + tuple(gshape)).to(self.dtype)
+            return chain_up(w, self.Wup, cells=self.cells, k=self.k)

@@ -29,6 +29,13 @@ also be asked for by name (the tests; chip_smoke.py's independent FP64
 residual check); "kron", "quad" and "grid" raise on full inverse
 Jacobians, "cell" on diagonal ones.  Tvmult applies the transposed
 tables on the same route (and kernels).
+
+Every apply (vmult, Tvmult, vmult_slice) is the tracer's span
+sysmat.vmult (utils/timer.py) and counts sysmat.vmults.<route>; inside
+it, sysmat.space holds the spatial work (the Kronecker pair, or the
+whole grid, quad or cell apply) and sysmat.time_mix each mixing over the
+block axis (nested in sysmat.space on the grid, quad and cell routes,
+where it runs between the spatial steps).
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from .ops.spatial import (LaplaceMassOperator, basis_tensors, cell_gather,
                           cell_scatter, overlap_add)
 from .utils.assembly import cell_dof_indices, overlap_sources
 from .utils.precision import full_precision
+from .utils.timer import count, span
 
 ROUTES = ("kron", "cell", "quad", "grid")
 
@@ -101,6 +109,7 @@ class SystemMatrix:
                              + ("full inverse Jacobians" if route == "cell"
                                 else "diagonal Jacobians only"))
         self.route = route
+        self._counter = f"sysmat.vmults.{route}"
         self._kron = self._grid = None
         if route == "kron":
             self._kron = KronAssembled(K_op, M_op, self.dtype)
@@ -187,10 +196,14 @@ class SystemMatrix:
                 return nt, A0, A1, B0, B1
         return None
 
-    def _mix(self, table: torch.Tensor, x: torch.Tensor):
-        """y_j = sum_i T[j, i] x_i over the leading block axis."""
-        table, x = promote(table, x)
-        return torch.einsum("ji,i...->j...", table, x)
+    def _mix(self, table: torch.Tensor, x: torch.Tensor,
+             contiguous: bool = False):
+        """y_j = sum_i T[j, i] x_i over the leading block axis (made
+        contiguous if asked)."""
+        with span("sysmat.time_mix"):
+            table, x = promote(table, x)
+            y = torch.einsum("ji,i...->j...", table, x)
+            return y.contiguous() if contiguous else y
 
     @property
     def dof_shape(self):
@@ -214,23 +227,28 @@ class SystemMatrix:
     def _apply_impl(self, x, tables, mask_input=True):
         Alpha, Beta = tables
         if self.route == "grid":
-            y = self._grid.apply(self._masked(x, mask_input),
-                                 lambda v: self._mix(Alpha, v),
-                                 lambda v: self._mix(Beta, v),
-                                 self.alpha_is_zero, self.beta_is_zero)
-            return self._zeros(x, Alpha) if y is None else y * self.K.mask
+            with span("sysmat.space"):
+                y = self._grid.apply(self._masked(x, mask_input),
+                                     lambda v: self._mix(Alpha, v),
+                                     lambda v: self._mix(Beta, v),
+                                     self.alpha_is_zero, self.beta_is_zero)
+                return (self._zeros(x, Alpha) if y is None
+                        else y * self.K.mask)
         if self.route == "quad":
-            return self._apply_quad(x, tables, mask_input)
+            with span("sysmat.space"):
+                return self._apply_quad(x, tables, mask_input)
         if self.route == "cell":
-            return self._apply_cell(x, tables, mask_input)
+            with span("sysmat.space"):
+                return self._apply_cell(x, tables, mask_input)
         K, M = self.K, self.M
-        xin = self._masked(x, mask_input)
         cKK, cKM = K.laplace_scaling, K.mass_scaling
         cMK, cMM = M.laplace_scaling, M.mass_scaling
         az, bz = self.alpha_is_zero, self.beta_is_zero
         need_K = (not az and cKK != 0.0) or (not bz and cMK != 0.0)
         need_M = (not az and cKM != 0.0) or (not bz and cMM != 0.0)
-        Kx, Mx = self._kron.pair(xin, need_K, need_M)
+        with span("sysmat.space"):
+            Kx, Mx = self._kron.pair(self._masked(x, mask_input), need_K,
+                                     need_M)
 
         def comb(cK_, cM_):
             t = None
@@ -294,8 +312,8 @@ class SystemMatrix:
             raise ValueError("route quad takes [n_blocks, *dofshape]")
         u = cell_gather(self._masked(x, mask_input), cells, k).reshape(
             x.shape[0], K.mesh.n_cells, (k + 1) ** dim)
-        ub = self._mix(tables[1], u).contiguous()
-        ua = self._mix(tables[0], u).contiguous()
+        ub = self._mix(tables[1], u, contiguous=True)
+        ua = self._mix(tables[0], u, contiguous=True)
         y = quad_middle(ub, ua, self._phig, self._w, K.n_q ** dim,
                         self._phigT)
         y = y.reshape((y.shape[0],) + tuple(cells) + (k + 1,) * dim)
@@ -307,22 +325,31 @@ class SystemMatrix:
         mask_input=False reads the constrained dofs of x too (the strong
         Dirichlet lift rhs -= A x_g); the output rows stay masked on every
         route."""
-        if self._slice_reduced is not None and x.shape[0] == 1:
-            return self.vmult_slice(x[0], mask_input)
-        return self._apply(x, mask_input)
+        count(self._counter)
+        with span("sysmat.vmult"):
+            if self._slice_reduced is not None and x.shape[0] == 1:
+                return self._vmult_slice(x[0], mask_input)
+            return self._apply(x, mask_input)
 
     def Tvmult(self, x: torch.Tensor):
         """The block-transposed apply (Alpha^T (x) K + Beta^T (x) M) x: K
         and M are symmetric, so it is vmult's spatial work under the
         transposed tables, on the same route and kernels; never the
         rhs-slice shortcut."""
-        return self._apply(x, transpose=True)
+        count(self._counter)
+        with span("sysmat.vmult"):
+            return self._apply(x, transpose=True)
 
     def vmult_slice(self, prev: torch.Tensor, mask_input: bool = True):
         """RHS assembly: dst_j = Alpha[j,0] K prev + Beta[j,0] M prev
         (reference vmult_slice_add, include/operators.h:585-611)."""
+        count(self._counter)
+        with span("sysmat.vmult"):
+            return self._vmult_slice(prev, mask_input)
+
+    def _vmult_slice(self, prev: torch.Tensor, mask_input: bool = True):
         if self._slice_reduced is not None:
-            y = self._slice_reduced.vmult_slice(prev, mask_input)
+            y = self._slice_reduced._vmult_slice(prev, mask_input)
             out = torch.zeros((self.n_blocks,) + y.shape[1:], dtype=y.dtype,
                               device=y.device)
             out[list(self._slice_nz)] = y
