@@ -15,6 +15,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      f32, with both times;
   4. K2 parity: kron_pair kernel vs its plain torch version at n=65, k=4,
      B=128 in float64, with both times and the share of the bound;
+  4a. K6 parity: level_pair kernel vs its plain torch version at every
+     level shape of the heat marches (32 x 3^3 .. 96 x 129^3, the ladder's
+     degrees, with the levels' own factors), bf16 and float32 (the outer
+     Richardson operator's dtype), with the kernel's and the dense
+     per-axis route's times and the share of the bound at 96 x 65^3 and
+     96 x 129^3;
   4b. K3 parity: banded_apply kernel vs its plain torch version along each
      of the three axes at B=128 x 65^3, k=4 (the heat factors) and at the
      Stokes shape 3 x 17^3, k=2 (the Stokes velocity factors), float64,
@@ -2358,6 +2364,58 @@ def kron_pair_check(kron, x, label: str) -> None:
         raise AssertionError(f"{label}: K2 disagrees with its plain version")
 
 
+# the heat marches' level ladder (blocks, cells an axis, degree): 2^3
+# cells at Q1, Q2 and Q4, then h levels up to 32^3 at Q4
+HEAT_LEVELS = ((32, 2, 1), (32, 2, 2), (64, 2, 2), (64, 2, 4), (96, 2, 4),
+               (96, 4, 4), (96, 8, 4), (96, 16, 4), (96, 32, 4))
+
+
+def level_pair_check(dev, gen) -> None:
+    """Phase 4a: K6 at every level shape of the heat marches against its
+    plain version (rel 1e-6 of the max entry in float32, 8e-3 in bf16),
+    with the levels' own factors; the kernel's and the dense route's
+    times and the share of the bound on the two finest levels."""
+    import torch
+    from stfem_tpu_torch.mesh.grid import StructuredMesh
+    from stfem_tpu_torch.ops.kronfac import KronAssembled
+    from stfem_tpu_torch.ops.level_pair import (level_pair,
+                                                level_pair_reference)
+    from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
+
+    for B, c, k in HEAT_LEVELS:
+        mesh = StructuredMesh([c] * 3, [0.0] * 3, [1.0] * 3)
+        for dt, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-6)):
+            kron = KronAssembled(*(LaplaceMassOperator(
+                mesh, k, k + 1, m, l, dtype=dt, device=dev)
+                for m, l in ((0.0, 1.0), (1.0, 0.0))), dt)
+            x = torch.randn((B,) + mesh.dof_shape(k), generator=gen,
+                            device=dev).to(dt)
+            before = level_pair.launches
+            got = kron.pair(x)
+            ref = level_pair_reference(x, *kron._level, k)
+            rel = max(float((g.double() - r.double()).abs().max()
+                            / r.double().abs().max())
+                      for g, r in zip(got, ref))
+            line = (f"# K6 level_pair {str(dt)[6:]} {B} x {c * k + 1}^3 "
+                    f"k={k}: rel to max {rel:.3e} (tol {tol:g})")
+            if c >= 16:
+                ms = _cuda_ms(lambda: kron.pair(x), 10)
+                level = kron._level
+                kron._level = None
+                dense = _cuda_ms(lambda: kron.pair(x), 3)
+                kron._level = level
+                bound = _bound(3 * _nbytes(x) + 2 * _nbytes(*level),
+                               16.0 * (2 * k + 1) * x.numel(), "f32")
+                line += (f" kernel {ms:.4f} ms dense route {dense:.4f} ms "
+                         f"bound {bound[0]:.4f} ms ({bound[1]}); share of "
+                         f"bound {bound[0] / ms:.3f}")
+            print(line, flush=True)
+            if not (rel <= tol and level_pair.launches > before):
+                raise AssertionError("K6 disagrees with its plain version "
+                                     "or was not taken")
+            del kron, x, got, ref
+
+
 def vanka_kernel_checks(van, dof_shape, gen, dev, label: str) -> None:
     """A grid-mode Vanka's kernels against their plain versions with its
     own matrices, on a random input of its level's shape: K4 down, K1
@@ -2992,6 +3050,10 @@ def main() -> int:
         raise AssertionError("K2 disagrees with its plain version")
     report["kron_pair"] = (err, ms, plain, None) + bound
     phase_done("K1, K2")
+
+    # 4a. K6 parity at the heat marches' level shapes
+    level_pair_check(dev, gen)
+    phase_done("K6")
 
     # 4b. K3 parity along every axis, at the large shape (the heat factors)
     #     and at the Stokes rhs shape (the Stokes velocity factors)

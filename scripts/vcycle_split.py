@@ -220,7 +220,7 @@ def launch_join(events: list[dict]) -> dict:
     names, or not at all; [count, seconds] per kind of kernel (the
     port's kernels by name fragment, the rest as "torch")."""
     frags = ("time_solve", "kron_pair", "banded_", "grid_chain_",
-             "quad_middle")
+             "quad_middle", "level_pair")
     runtime = {e["corr"] for e in events if e["kind"] == "runtime"}
     host = {e["corr"] for e in events if e["kind"] == "cpu"}
     out = defaultdict(lambda: defaultdict(lambda: [0, 0.0]))

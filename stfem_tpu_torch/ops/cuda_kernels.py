@@ -20,7 +20,7 @@ from ..utils.timer import count, span
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("time_solve.cu", "kron_pair.cu", "banded_apply.cu",
-           "grid_chain.cu", "quad_middle.cu")
+           "grid_chain.cu", "quad_middle.cu", "level_pair.cu")
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "kernels"
             / "libstfem_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -96,7 +96,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("stfem_grid_chain",
              [i32] + [vp] * 5 + [i64] + [i3] * 3 + [i32] * 5 + [vp]),
             ("stfem_quad_middle_f64", [vp] * 5 + [i32] * 8 + [vp]),
-            ("stfem_quad_middle_f32", [vp] * 6 + [i32] * 5 + [vp])):
+            ("stfem_quad_middle_f32", [vp] * 6 + [i32] * 5 + [vp]),
+            ("stfem_level_pair", [i32] + [vp] * 5 + [i64] + [i32] * 7 + [vp])):
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i32

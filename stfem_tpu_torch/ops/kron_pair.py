@@ -63,14 +63,15 @@ def _stack_diags(D, nmax: int) -> torch.Tensor:
                         for Dd in D]).contiguous()
 
 
-def tile_plan(n1: int, n2: int):
-    """(rows of axis 1 per CTA, tiles, threads per CTA) of the kernel: one
-    thread per (row, axis-2) position, at most MAX_THREADS, the rows spread
-    evenly over the tiles (the last tile may hold fewer)."""
-    if not 1 <= n2 <= MAX_THREADS:
-        raise ValueError(f"kron_pair: axis 2 of length {n2} exceeds the "
-                         f"kernel's {MAX_THREADS} threads")
-    n_tiles = -(-n1 // max(1, min(n1, MAX_THREADS // n2)))
+def tile_plan(n1: int, n2: int, max_threads: int = MAX_THREADS):
+    """(rows of axis 1 per CTA, tiles, threads per CTA) of the kernel (and
+    of K6's, ops/level_pair.py, with its max_threads): one thread per (row,
+    axis-2) position, at most max_threads, the rows spread evenly over the
+    tiles (the last tile may hold fewer)."""
+    if not 1 <= n2 <= max_threads:
+        raise ValueError(f"axis 2 of length {n2} exceeds the kernel's "
+                         f"{max_threads} threads")
+    n_tiles = -(-n1 // max(1, min(n1, max_threads // n2)))
     t = -(-n1 // n_tiles)
     return t, n_tiles, 32 * -(-t * n2 // 32)
 

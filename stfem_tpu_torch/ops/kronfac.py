@@ -10,18 +10,21 @@ with 1D assembled mass/stiffness matrices M_d, A_d (bandwidth 2k+1) built
 from the same 1D quadrature as the volume operator.  One (Kx, Mx) pair
 costs 3*dim-1 per-axis applies with a shared mass prefix.
 
-The float32/bfloat16 pair uses the dense per-axis matmuls; the float64
-pair (the IR residual, the outer operator of the tp_01 cycle) uses the
-banded diagonal form, dispatched by shape: both outputs of a 3D grid of
-degree k <= kron_pair.MAX_K (Q1-Q4) through kernel K2 (ops/kron_pair.py);
-everything else -- any single output (the rhs couplings ask for M x
-alone), every 2D pair, and the 3D pairs of degree 5 (Q5, the top space
-degree of the reference's CGP sweeps) -- as a chain of single-axis
-applies through kernel K3 (ops/banded_apply.py), the structure of
-stfem_tpu's KronPallas9._pair_pallas.  This is a choice by shape, not a
-fallback: a failed build or launch of either kernel raises.  The 1D
-factors are unconstrained: Dirichlet masking stays external (y = mask *
-A (mask * x)).
+The float64 pair (the IR residual, the outer operator of the tp_01
+cycle) uses the banded diagonal form, dispatched by shape: both outputs
+of a 3D grid of degree k <= kron_pair.MAX_K (Q1-Q4) through kernel K2
+(ops/kron_pair.py); everything else -- any single output (the rhs
+couplings ask for M x alone), every 2D pair, and the 3D pairs of degree 5
+(Q5, the top space degree of the reference's CGP sweeps) -- as a chain of
+single-axis applies through kernel K3 (ops/banded_apply.py), the
+structure of stfem_tpu's KronPallas9._pair_pallas.  The bfloat16/float32
+pair (the level operators, the float32 outer operator) on CUDA takes
+kernel K6 (ops/level_pair.py) for both outputs of a 3D grid of degree
+k <= level_pair.MAX_K that the kernel takes (level_pair.supports); every
+other low-precision pair, and every one on the CPU, uses the dense
+per-axis matmuls.  This is a choice by shape, not a fallback: a failed
+build or launch of any kernel raises.  The 1D factors are unconstrained:
+Dirichlet masking stays external (y = mask * A (mask * x)).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from .banded_apply import banded_apply
 from .gridsumfac import axis_apply
 from .kron_pair import MAX_K as KRON_PAIR_MAX_K
 from .kron_pair import kron_pair
+from .level_pair import level_pair, supports as level_pair_supports
+from .level_pair import tables as level_pair_tables
 
 __all__ = ["KronAssembled", "to_diags"]
 
@@ -112,6 +117,11 @@ class KronAssembled:
             self.A1.append(as_t(A1np))
             self.Md.append(as_t(to_diags(M1np, k)))
             self.Ad.append(as_t(to_diags(A1np, k)))
+        # K6's stacked float32 tables, once (CUDA, 3D, bf16 / float32)
+        self._level = None
+        if (device.type == "cuda" and dtype in (torch.bfloat16, torch.float32)
+                and level_pair_supports([m.shape[0] for m in self.M1], k)):
+            self._level = level_pair_tables(self.Md, self.Ad, dtype)
 
     def pair(self, x: torch.Tensor, need_K: bool = True,
              need_M: bool = True):
@@ -125,6 +135,11 @@ class KronAssembled:
             apply = lambda D, v, ax: banded_apply(v, D, ax, self.k)
             Mf, Af = self.Md, self.Ad
         else:
+            dt = torch.promote_types(self.dtype, x.dtype)
+            if (need_K and need_M and self._level is not None and x.is_cuda
+                    and dt in (torch.bfloat16, torch.float32)):
+                return level_pair(x.to(dt).contiguous(), *self._level,
+                                  self.k)
             apply = lambda D, v, ax: axis_apply(D, v, ax)
             Mf, Af = self.M1, self.A1
         lead = x.ndim - self.dim

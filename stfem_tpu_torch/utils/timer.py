@@ -133,11 +133,13 @@ def _launches() -> dict:
     from ..ops.banded_apply import banded_apply
     from ..ops.grid_chain import chain_down, chain_up
     from ..ops.kron_pair import kron_pair
+    from ..ops.level_pair import level_pair
     from ..ops.quad_middle import quad_middle
     from ..ops.time_solve import time_solve
     return {f.__name__: f.launches for f in (time_solve, kron_pair,
                                               banded_apply, chain_down,
-                                              chain_up, quad_middle)}
+                                              chain_up, quad_middle,
+                                              level_pair)}
 
 
 def _fold_launches() -> None:

@@ -1,12 +1,13 @@
-"""Build csrc/grid_chain.cu, csrc/kron_pair.cu, csrc/banded_apply.cu and
-csrc/time_solve.cu for the CPU, for the tests.
+"""Build csrc/grid_chain.cu, csrc/kron_pair.cu, csrc/banded_apply.cu,
+csrc/time_solve.cu and csrc/level_pair.cu for the CPU, for the tests.
 
 The kernels' C sources are compiled by g++ against small stand-ins for
 cuda_runtime.h and cuda_bf16.h: a launch runs the grid's blocks one after
 another, each block's threads (x fastest, then y, then z) as std::threads
 meeting at a std::barrier for __syncthreads(); cp.async becomes a plain
-copy and shared memory starts out as NaN, so that a read of an element
-nobody wrote shows.  This checks the kernels' indexing,
+copy (one off its size's alignment makes the launch fail, as on the card)
+and shared memory starts out as NaN, so that a read of an element nobody
+wrote shows.  This checks the kernels' indexing,
 tiling and synchronisation on the CPU; speed, and what only nvcc accepts,
 show on the card alone (tests/test_torch_kernels_cuda.py).
 """
@@ -23,6 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "stfem_tpu_torch" / "csrc"
 _RUNTIME = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -50,14 +52,20 @@ inline thread_local std::barrier<>* g_bar;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 struct double2 { double x, y; };
 inline double2 make_double2(double a, double b) { return {a, b}; }
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorMisalignedAddress = 716 };
+inline std::atomic<bool> g_misaligned{false};   // a cp.async off alignment
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() {
+  return g_misaligned.exchange(false) ? cudaErrorMisalignedAddress : cudaSuccess;
+}
 template <class F>
 void emu_launch(unsigned grid, dim3 block, size_t smem, F f) {
   const unsigned threads = block.x * block.y * block.z;
@@ -109,9 +117,11 @@ def _emulable(src: str) -> str:
                  r"unsigned char* \1 = g_smem;", src)
     src = re.sub(r"extern __shared__ (?:__align__\(16\) )?(\w+) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(g_smem);", src)
-    src = re.sub(r"(void cp_async8\((?:\w+)\* smem, const (?:\w+)\* gmem\)) "
-                 r"\{.*?\n\}", r"\1 { std::memcpy(smem, gmem, 8); }", src,
-                 flags=re.S)
+    src = re.sub(r"(void cp_async(\d+)\((?:\w+)\* smem, "
+                 r"const (?:\w+)\* gmem\)) \{.*?\n\}",
+                 r"\1 { if ((reinterpret_cast<size_t>(smem) | "
+                 r"reinterpret_cast<size_t>(gmem)) % \2) g_misaligned = true; "
+                 r"std::memcpy(smem, gmem, \2); }", src, flags=re.S)
     src = "\n".join(";" if 'asm volatile("cp.async.' in line
                     and "_group" in line else line
                     for line in src.split("\n"))
@@ -132,7 +142,8 @@ def build(out_dir: Path) -> ctypes.CDLL | None:
     (out_dir / "cuda_runtime.h").write_text(_RUNTIME)
     (out_dir / "cuda_bf16.h").write_text(_BF16)
     srcs = []
-    for name in ("grid_chain", "kron_pair", "banded_apply", "time_solve"):
+    for name in ("grid_chain", "kron_pair", "banded_apply", "time_solve",
+                 "level_pair"):
         path = out_dir / f"{name}.cpp"
         path.write_text(_emulable((CSRC / f"{name}.cu").read_text()))
         srcs.append(str(path))

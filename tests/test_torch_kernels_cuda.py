@@ -12,7 +12,8 @@ order, on every kernel form); K4 float32 1e-5 (f32 sums in another
 order), bf16 8e-3 (one bf16 rounding of the f32 sums, either side),
 float64 1e-13; K5 float64 1e-12 and float32 1e-5 (sums of 64-500
 products in another order than the plain version's matmuls: FP64 on the
-tensor cores, f32 on the CUDA cores, never TF32)."""
+tensor cores, f32 on the CUDA cores, never TF32); K6 float32 1e-6 (the
+same float32 taps in the same order up to FMA contraction), bf16 8e-3."""
 import pytest
 import torch
 
@@ -24,6 +25,9 @@ from stfem_tpu_torch.ops.grid_chain import (chain_down, chain_down_reference,
                                             chain_up_reference)
 from stfem_tpu_torch.ops.kron_pair import kron_pair, kron_pair_reference
 from stfem_tpu_torch.ops.kronfac import KronAssembled
+from stfem_tpu_torch.ops.level_pair import (level_pair,
+                                            level_pair_reference)
+from stfem_tpu_torch.ops.level_pair import tables as level_pair_tables
 from stfem_tpu_torch.ops.quad_middle import quad_middle, quad_middle_reference
 from stfem_tpu_torch.ops.spatial import LaplaceMassOperator
 from stfem_tpu_torch.ops.time_solve import time_solve, time_solve_reference
@@ -417,3 +421,110 @@ def test_tvmult_on_card(dev, route, k, coefficient):
             assert kernel.launches > before
     got, ref = out["cuda"], out["cpu"]
     assert _rel(got[0], ref[0]) <= 1e-12 and _rel(got[0], got[1]) <= 1e-12
+
+
+# every level shape of the heat marches (blocks, n): 32 x 3^3 .. 96 x
+# 129^3, at each degree k in {1, 2, 4} that the grid can hold
+_LEVEL_PAIRS = [(B, n, k) for B, n in ((32, 3), (32, 5), (64, 5), (64, 9),
+                                       (96, 9), (96, 17), (96, 33),
+                                       (96, 65), (96, 129))
+                for k in (1, 2, 4) if (n - 1) % k == 0]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("B,n,k", _LEVEL_PAIRS)
+def test_level_pair_kernel(dev, B, n, k, dtype, tol):
+    """K6 with a level's own factors against its plain version."""
+    cells = (n - 1) // k
+    mesh = StructuredMesh([cells] * 3, [0.0] * 3, [1.0] * 3)
+    ops = [LaplaceMassOperator(mesh, k, k + 1, m, l, dtype=dtype,
+                               device=dev) for m, l in ((0.0, 1.0),
+                                                        (1.0, 0.0))]
+    kron = KronAssembled(*ops, dtype)
+    g = torch.Generator(device=dev).manual_seed(B * n + k)
+    x = torch.randn((B, n, n, n), generator=g, device=dev).to(dtype)
+    before = level_pair.launches
+    Kk, Mk = level_pair(x, *kron._level, k)
+    torch.cuda.synchronize()
+    assert level_pair.launches == before + 1 and Kk.dtype == dtype
+    Kr, Mr = level_pair_reference(x, *kron._level, k)
+    assert _rel(Kk, Kr) <= tol and _rel(Mk, Mr) <= tol
+
+
+def test_level_pair_kernel_rejects(dev):
+    dm, da = level_pair_tables([torch.zeros((3, 5))] * 3,
+                               [torch.zeros((3, 5))] * 3, torch.float32)
+    dm, da = dm.to(dev), da.to(dev)
+    for bad in (torch.zeros((1, 5, 5, 5), device=dev, dtype=torch.float64),
+                torch.zeros((1, 5, 5, 5), device=dev, dtype=torch.float16),
+                torch.zeros((1, 5, 5, 5), device=dev).transpose(1, 3)):
+        with pytest.raises(ValueError):
+            level_pair(bad, dm, da, 1)
+    with pytest.raises(ValueError):          # tables of another k
+        level_pair(torch.zeros((1, 5, 5, 5), device=dev), dm, da, 2)
+
+
+@pytest.mark.parametrize("dim,k,need", [(3, 4, (True, True)),
+                                        (3, 2, (True, True)),
+                                        (3, 5, (True, True)),
+                                        (2, 4, (True, True)),
+                                        (3, 4, (False, True)),
+                                        (3, 4, (True, False))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kron_pair_low_precision_route(dev, dim, k, need, dtype):
+    """A bf16 / float32 pair on the card takes K6 (one launch) for both
+    outputs of a 3D grid with k <= 4, the dense matmuls otherwise; each
+    against the FP64 pair of the same rounded factors."""
+    mesh = StructuredMesh([2, 3, 2][:dim], [0.0] * dim, [1.0] * dim)
+    ops = [LaplaceMassOperator(mesh, k, k + 1, m, l, dtype=dtype,
+                               device=dev) for m, l in ((0.0, 1.0),
+                                                        (1.0, 0.0))]
+    kron = KronAssembled(*ops, dtype)
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn((6,) + mesh.dof_shape(k), generator=g,
+                    device=dev).to(dtype)
+    before = level_pair.launches
+    got = kron.pair(x, *need)
+    torch.cuda.synchronize()
+    k6 = dim == 3 and k <= 4 and all(need)
+    assert level_pair.launches == before + int(k6)
+    ref = kron_pair_reference(x.double(), [D.double() for D in kron.Md],
+                              [D.double() for D in kron.Ad], k)
+    # bf16: K6 rounds once (2^-8 of an entry at most), the dense route
+    # after each of its matmuls
+    tol = 1e-5 if dtype == torch.float32 else (4e-3 if k6 else 3e-2)
+    for g_, r_, want in zip(got, ref, need):
+        assert (g_ is None) == (not want)
+        if want:
+            assert g_.dtype == dtype and _rel(g_, r_) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1.2e-2)])
+def test_level_vmult_on_card(dev, dtype, tol):
+    """SystemMatrix.vmult of a bf16 / float32 level operator on route
+    "kron" (K6) against the FP64 operator on the same input (its factors,
+    tables and input rounded to the level's dtype: the dense route reads
+    1.9e-7 and 9.2e-3 here on the CPU)."""
+    import numpy as np
+
+    from stfem_tpu_torch.system import SystemMatrix
+    from stfem_tpu_torch.time.tables import get_fe_time_weights
+    from stfem_tpu_torch.types import TimeStepType
+
+    A, Bt, _, _ = get_fe_time_weights(TimeStepType.DG, 2, 1 / 32, 4)
+    mesh = StructuredMesh([4, 3, 5], [0.0] * 3, [1.0] * 3)
+    y = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (A.shape[0],) + mesh.dof_shape(4)), device=dev)
+    out = {}
+    for dt in (dtype, torch.float64):
+        ops = [LaplaceMassOperator(mesh, 4, 5, ms, ls, dtype=dt, device=dev)
+               for ms, ls in ((0.0, 1.0), (1.0, 0.0))]
+        S = SystemMatrix(*ops, A, Bt, precision=None)
+        assert S.route == "kron"
+        before = level_pair.launches
+        out[dt] = S.vmult(y.to(dt))
+        torch.cuda.synchronize()
+        assert level_pair.launches == before + int(dt != torch.float64)
+    assert _rel(out[dtype], out[torch.float64]) <= tol

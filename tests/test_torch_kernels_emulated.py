@@ -1,5 +1,6 @@
 """Kernels K4 (csrc/grid_chain.cu), K2 (csrc/kron_pair.cu), K3
-(csrc/banded_apply.cu) and K1 (csrc/time_solve.cu) run on the CPU through
+(csrc/banded_apply.cu), K1 (csrc/time_solve.cu) and K6
+(csrc/level_pair.cu) run on the CPU through
 tests/cuda_emulator.py (g++, one std::thread per CUDA thread), called with
 the arguments their wrappers prepare (the wrappers' kernel_args: the same
 checks, tile plans and output buffers as on the card), against the plain
@@ -10,13 +11,15 @@ tests (tests/test_torch_kernels_cuda.py) hold what nvcc builds.  Shared
 memory starts as NaN in the emulator, so a read of an unwritten element
 fails the comparison.  Tolerances, relative to the plain version's max
 norm, as on the card: K4 float64 1e-13, float32 1e-5, bf16 8e-3 (one bf16
-rounding); K2 and K3 float64 1e-14; K1 float32 1e-5, bf16 8e-3."""
+rounding); K2 and K3 float64 1e-14; K1 float32 1e-5, bf16 8e-3; K6
+float32 1e-6 (the same float32 taps up to FMA contraction and order),
+bf16 8e-3."""
 import numpy as np
 import pytest
 import torch
 
 from stfem_tpu_torch.ops import (banded_apply, cuda_kernels, grid_chain,
-                                 kron_pair, time_solve)
+                                 kron_pair, level_pair, time_solve)
 
 from cuda_emulator import build
 
@@ -144,3 +147,34 @@ def test_time_solve_emulated(emulated, nt, dtype, tol):
     assert emulated.stfem_time_solve(*args, None) == 0
     ref = time_solve.time_solve_reference(w, G, c, S, nt, dtype)
     assert _rel(out, ref) <= tol
+
+
+# (cells per axis, k, lead shape): odd n everywhere (bf16 plane tiles
+# start mid-word), axis 1 in several tiles (n1 = 33 with n2 = 33: 15 + 15
+# + 3 rows; n1 = 41 with n2 = 121: 4 rows a tile, the halo rows of inner
+# tiles out of the grid only at the ends), n < 2k + 1, a batch of blocks
+# and an extra batch axis, every k the kernel is built for
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("cells,k,lead", [((2, 8, 8), 4, (2,)),
+                                          ((1, 40, 120), 1, (1,)),
+                                          ((2, 3, 4), 2, (2, 3)),
+                                          ((1, 1, 1), 4, (3,)),
+                                          ((3, 2, 1), 0, (2,)),
+                                          ((4, 6, 5), 3, (1,)),
+                                          ((2, 16, 16), 2, (1,))])
+def test_level_pair_emulated(emulated, cells, k, lead, dtype, tol):
+    rng = np.random.default_rng(sum(cells) * 10 + k)
+    n = [c * max(k, 1) + 1 for c in cells]
+    # diagonals nonzero off-range too: the rows and planes outside the
+    # grid have to read as zero
+    dm, da = (level_pair.tables([torch.as_tensor(rng.standard_normal(
+        (2 * k + 1, nd))) for nd in n], [torch.as_tensor(
+            rng.standard_normal((2 * k + 1, nd))) for nd in n], dtype))
+    x = torch.as_tensor(rng.standard_normal(lead + tuple(n))).to(dtype)
+    args, (kx, mx) = level_pair.kernel_args(x, dm, da, k)
+    kx.fill_(float("nan"))
+    mx.fill_(float("nan"))
+    assert emulated.stfem_level_pair(*args, None) == 0
+    Kr, Mr = level_pair.level_pair_reference(x, dm, da, k)
+    assert _rel(kx, Kr) <= tol and _rel(mx, Mr) <= tol
